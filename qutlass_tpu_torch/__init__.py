@@ -1,0 +1,168 @@
+"""qutlass_tpu_torch — the MXFP4 W4A4 path of ``qutlass_tpu`` in PyTorch,
+with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+
+Same op names, argument conventions and stored bytes as the JAX package:
+
+  * e2m1 data: ``uint8``, two values per byte, element 2i in the low nibble
+  * e8m0 scales: ``uint8`` exponent bytes (``torch.float8_e8m0fnu`` views
+    are accepted)
+  * K-major operands are ``[K, rows]``; row-major scales ``[rows, K/32]``
+
+Tensors on a CUDA device run the kernels in ``qutlass_tpu_torch/csrc``
+(built with ``nvcc`` at first use); tensors on the CPU run each kernel's
+plain PyTorch version (``ops/emulation.py``).  The package never imports
+JAX.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import utils
+from .formats import codecs
+from .ops import cuda_ops as _ops
+from .ops import dispatch
+from .ops import validation as _val
+from .utils import (ceil_div, from_blocked, hadamard_matrix, identity_matrix,
+                    pad_to_block, round_up, to_blocked)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "fusedQuantizeMx", "fusedQuantizeMxInt8", "fused_quantize_mx",
+    "fused_quantize_mx_int8", "matmul_mxf4_bf16_tn", "matmul_mxf4_bf16_kmajor",
+    "matmul_mxf4_bf16_kmajor_codes", "matmul_ada_mxf4_bf16_tn",
+    "to_blocked", "from_blocked", "pad_to_block", "hadamard_matrix",
+    "identity_matrix",
+]
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """Accept float8 views and int32 byte values; return uint8."""
+    if x.dtype == torch.uint8:
+        return x
+    if x.dtype in (torch.float8_e8m0fnu, torch.float8_e4m3fn):
+        return x.view(torch.uint8)
+    if x.dtype == torch.int32:
+        return x.to(torch.uint8)
+    raise TypeError(f"expected uint8 byte tensor, got {x.dtype}")
+
+
+def _norm_scales(sf: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Normalize a scale argument to row-major [rows, cols] bytes.
+
+    Accepts the flattened padded layout of :func:`to_blocked`, the padded
+    2-D buffer of the quantizers, or the exact [rows, cols] matrix.  A
+    padded buffer is sliced, not copied.
+    """
+    sf = _as_bytes(sf)
+    if sf.ndim == 1:
+        for pc in (round_up(cols, 4), cols):
+            if sf.numel() % pc == 0 and sf.numel() >= rows * pc:
+                sf = sf.reshape(-1, pc)
+                break
+        else:
+            raise ValueError(
+                f"flattened scale buffer of {sf.numel()} bytes cannot cover "
+                f"[{rows}, {cols}] (expected row padding to a multiple of "
+                f"{round_up(cols, 4)} or {cols} columns)")
+    if sf.ndim != 2:
+        raise ValueError(f"scales must be 1-D or 2-D, got shape {tuple(sf.shape)}")
+    if sf.shape[0] > rows or sf.shape[1] > cols:
+        sf = sf[:rows, :cols]
+    if tuple(sf.shape) != (rows, cols):
+        raise ValueError(
+            f"scale buffer shape {tuple(sf.shape)} does not cover the required "
+            f"[{rows}, {cols}] (pass the quantizer's padded buffer, a "
+            f"to_blocked flattening, or the exact matrix)")
+    return sf
+
+
+def _check_method(method: str) -> None:
+    if method not in ("quest", "abs_max"):
+        raise ValueError(f"invalid method {method!r}, must be 'quest' or 'abs_max'")
+
+
+# ---------------------------------------------------------------------------
+# fused quantization
+# ---------------------------------------------------------------------------
+
+def fusedQuantizeMx(a: torch.Tensor, h: torch.Tensor, *, method: str = "quest",
+                    return_mask: bool = False, layout: str = "rowmajor"):
+    """Fused rotation + MXFP4 quantization.
+
+    a: [..., K] bf16; h: [r, r] rotation, r in {16, 32, 64, 128},
+    K % r == 0, K % 32 == 0.  Returns (e2m1 u8 [..., K/2], e8m0 u8
+    [pad_rows, pad_cols][, clip_mask u8 [..., K/8]]).  ``layout="kmajor"``
+    returns (e2m1 u8 [K/2, rows], e8m0 u8 [K/32, rows][, mask u8
+    [K/8, rows]]); ``layout="kmajor_codes"`` unpacked codes u8 [K, rows].
+    """
+    _check_method(method)
+    if return_mask and method != "quest":
+        raise ValueError("return_mask is only supported for method 'quest'")
+    if layout not in ("rowmajor", "kmajor", "kmajor_codes"):
+        raise ValueError(f"invalid layout {layout!r}")
+    _val.check_bf16("a", a)
+    k = a.shape[-1]
+    rot = _val.check_rotation(h, k)
+    _val.check_group_dim("fusedQuantizeMx", k, 32)
+    return _ops.fused_quantize_mx(a.contiguous(), h, rot_size=rot, method=method,
+                                  return_mask=return_mask, layout=layout)
+
+
+def fusedQuantizeMxInt8(a: torch.Tensor, h: torch.Tensor, *,
+                        method: str = "quest"):
+    """Fused rotation + MXFP4 quantization + int8 encode (the activation
+    path of the int8 evaluator, ``ops/int8path.py``).
+
+    Returns (a' int8 [K, rows] natural K order, row_scale f32 [rows] =
+    2^(E-4), e8m0 scale bytes u8 [K/32, rows]).
+    """
+    _check_method(method)
+    _val.check_bf16("a", a)
+    k = a.shape[-1]
+    rot = _val.check_rotation(h, k)
+    _val.check_group_dim("fusedQuantizeMxInt8", k, 32)
+    return _ops.fused_quantize_mx_int8(a.contiguous(), h, rot_size=rot,
+                                       method=method)
+
+
+fused_quantize_mx = fusedQuantizeMx
+fused_quantize_mx_int8 = fusedQuantizeMxInt8
+
+
+# ---------------------------------------------------------------------------
+# block-scaled GEMMs
+# ---------------------------------------------------------------------------
+
+def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+    """out[M, N] = (dq(a) @ dq(b)^T) * alpha in bf16.
+
+    a: u8 [M, K/2], b: u8 [N, K/2]; scales row-major (or the flattened
+    padded layout from :func:`to_blocked`).
+    """
+    m, n, k = _val.check_matmul_tn(a, b, 32)
+    a_sf = _norm_scales(a_sf, m, k // 32)
+    b_sf = _norm_scales(b_sf, n, k // 32)
+    return _ops.matmul_mxf4_bf16_tn(_as_bytes(a), _as_bytes(b), a_sf, b_sf,
+                                    alpha)
+
+
+def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+    """K-major MXFP4 GEMM: at u8 [K/2, M], bt u8 [K/2, N], scales u8
+    [K/32, M] / [K/32, N] (``fusedQuantizeMx(..., layout="kmajor")``)."""
+    return _ops.matmul_mxf4_bf16_kmajor(_as_bytes(at), _as_bytes(bt),
+                                        _as_bytes(a_sft), _as_bytes(b_sft),
+                                        alpha)
+
+
+def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
+    """K-major MXFP4 GEMM with unpacked activation codes at u8 [K, M]."""
+    return _ops.matmul_mxf4_bf16_kmajor_codes(_as_bytes(at), _as_bytes(bt),
+                                              _as_bytes(a_sft),
+                                              _as_bytes(b_sft), alpha)
+
+
+def matmul_ada_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+    """Small-batch alias of :func:`matmul_mxf4_bf16_tn` (one kernel covers
+    both regimes)."""
+    return matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha)

@@ -1,0 +1,124 @@
+// Shared device codecs for the MXFP4 kernels.
+//
+// Each function is the bit-for-bit CUDA twin of the function of the same
+// name in qutlass_tpu_torch/formats/codecs.py.  The scale arithmetic is
+// written with __fmul_rn/__fadd_rn/__fsqrt_rn so that no FMA contraction
+// or approximate square root can move a value by an ulp (the library is
+// also compiled with --fmad=false); powers of two are built from bits.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace qt {
+
+// float32(2.92247856 / 6.0) and float32(1e-8), rounded from the double
+// values exactly as PyTorch rounds a Python float against an fp32 tensor.
+constexpr float kQuestConst = (float)(2.92247856 / 6.0);
+constexpr float kScaleEps = (float)1e-8;
+
+// fp32 -> e2m1 code 0..15: RTNE with even-code ties, saturating to +-6,
+// NaN -> +0.  Integer-domain encoder on the fp32 bit pattern.
+__device__ __forceinline__ int e2m1_code(float q) {
+  const int b = __float_as_int(q);
+  const int sign = (b >> 28) & 8;
+  int a = b & 0x7FFFFFFF;
+  a = a > 0x7F800000 ? 0 : min(a, 0x40C00000);
+  const int cl = (a > 0x3E800000) + (a >= 0x3F400000);
+  const int r = a + 0x1FFFFF + ((a >> 22) & 1);
+  const int code = a < 0x3F800000 ? cl : (r >> 22) - 252;
+  return code | sign;
+}
+
+// e2m1 code -> signed 2*value (the int8 evaluator's mantissa).
+__device__ __forceinline__ int e2m1_m2(int code) {
+  const int mag = code & 7;
+  const int m = mag < 5 ? mag : (mag < 7 ? 2 * mag - 4 : 12);
+  return code >= 8 ? -m : m;
+}
+
+// e8m0 byte -> fp32 2^(byte-127); byte 0 -> 2^-127 (subnormal), 255 -> NaN.
+__device__ __forceinline__ float e8m0_decode(int byte) {
+  if (byte == 255) return __int_as_float(0x7FC00000);
+  if (byte == 0) return __int_as_float(0x00400000);
+  return __int_as_float(byte << 23);
+}
+
+// exact 2^n, n clamped to [-127, 127]
+__device__ __forceinline__ float pow2_f32(int n) {
+  return e8m0_decode(min(max(n + 127, 0), 254));
+}
+
+// e2m1 code times e8m0 scale -> exact bf16 value, returned as fp32.
+// Integer-only: the scale is an add on the bf16 exponent field; exponent
+// underflow gives the exact subnormal (RTNE on the shifted-out bits),
+// overflow saturates to inf, scale byte 255 gives NaN.
+__device__ __forceinline__ float e2m1_decode_scaled(int code, int sb) {
+  const int mag = code & 7;
+  const int e = mag >> 1;
+  const int mant = ((code & 1) & min(e, 1)) << 6;
+  const int x = e + sb - 1;
+  const int norm = (x << 7) | mant;
+  const int s = min(max(1 - x, 1), 15);
+  const int sig = 0x80 | mant;
+  const int shifted = sig >> s;
+  const int rem = sig & ((1 << s) - 1);
+  const int half = 1 << (s - 1);
+  const int subn = shifted + ((rem > half) | ((rem == half) & (shifted & 1)));
+  const int hi = x >= 255 ? (255 << 7) : norm;
+  int bits = mag == 0 ? 0 : (x > 0 ? hi : subn);
+  bits |= (code & 8) << 12;
+  if (sb == 255) bits = 0x7FC0;
+  return __int_as_float(bits << 16);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  // xor butterfly: every lane ends with the same, bitwise identical sum
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  return v;
+}
+
+// e8m0 scale byte of one 32-group held one element per lane.
+// method 0 = QuEST (sqrt(var) * 2.92247856/6 + 1e-8, 1.0 where var < 0),
+// method 1 = abs-max (amax + 1e-8); then the pow2 floor by bit masking.
+__device__ __forceinline__ int group_scale_byte(float v, int method) {
+  float scale;
+  if (method == 0) {
+    const float s1 = warp_sum(v);
+    const float s2 = warp_sum(__fmul_rn(v, v));
+    const float mean = __fmul_rn(s1, 0.03125f);
+    const float var = __fsub_rn(__fmul_rn(s2, 0.03125f), __fmul_rn(mean, mean));
+    scale = var >= 0.f ? __fadd_rn(__fmul_rn(__fsqrt_rn(var), kQuestConst), kScaleEps) : 1.0f;
+  } else {
+    scale = __fadd_rn(warp_max(fabsf(v)), kScaleEps);
+  }
+  return (__float_as_int(scale) & 0x7F800000) >> 23;
+}
+
+// scaled value to round onto the e2m1 grid: v * 2^(127-byte) (exact
+// reciprocal), times 3 for abs-max
+__device__ __forceinline__ float group_q(float v, int byte, int method) {
+  float q = __fmul_rn(v, e8m0_decode(254 - byte));
+  return method == 0 ? q : __fmul_rn(q, 3.0f);
+}
+
+// Rotated element `col` of a 128-wide bf16 tile row held in shared memory:
+// sum over the rot-chunk containing col of x[c0 + i] * h[i][col - c0],
+// in fp32 (the products of two bf16 values are exact in fp32).
+__device__ __forceinline__ float rotate_elem(const __nv_bfloat16* xrow, const __nv_bfloat16* h,
+                                             int rot, int col) {
+  const int c0 = (col / rot) * rot;
+  const int hc = col - c0;
+  float v = 0.f;
+  for (int i = 0; i < rot; ++i)
+    v = fmaf(__bfloat162float(xrow[c0 + i]), __bfloat162float(h[i * rot + hc]), v);
+  return v;
+}
+
+}  // namespace qt

@@ -1,0 +1,113 @@
+// K4 gemm_fp4_mx: the MXFP4 decode GEMM,
+//   C[m, n] = bf16( (sum_k dq(a)[m, k] * dq(b)[n, k]) * alpha ),
+// dq = e2m1 code times its 32-group e8m0 scale, exact in bf16.
+//
+// Replaces the Pallas kernel qutlass_tpu/kernels/gemm.py:_run_gemm with
+// _gemm_fp4_kernel, fmt="mx" (:127-148), behind matmul_mxf4_bf16_tn,
+// _kmajor and _kmajor_codes (:213-251): the fp4-weight fallback of the
+// quantized linear and the reference-parity GEMM.
+//
+// What bounds it on the H100: fp32 FMA rate.  This first version
+// accumulates on the CUDA cores, not the tensor cores (67 TFLOP/s fp32
+// against 989 bf16), because an fp32 FMA of two exact products rounds
+// exactly like the fp64 reference whenever the partial sums are exact,
+// which makes the result bit-exact against bf16(fp64 dequant matmul).
+//
+// Design: 64x64 output tiles, 256 threads of 4x4 outputs each.  Every
+// K step of 32 (one scale group) decodes a 32x64 slab of each operand
+// with the integer formula of codecs.e2m1_decode_scaled_bf16 (exact for
+// every scale byte, 0 included; the TPU's SWAR trick is not, and is not
+// used) into shared memory as fp32.  Operands and scales are read
+// through strides, so the row-major, K-major and unpacked-codes layouts
+// share the kernel.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int THREADS = 256;
+constexpr int PAD = 65;  // slab row stride: conflict-free stores along k and along rows
+
+// decode the [rows r0.., k k0..] slab of a logical [R, K] operand (codes
+// packed two per byte when `packed`, element 2i in the low nibble) with
+// its scales s[r * s_r + g * s_g] into t[k][row]
+__device__ __forceinline__ void decode_tile(float (*t)[PAD], const uint8_t* __restrict__ q,
+                                            long long q_r, long long q_k, int packed,
+                                            const uint8_t* __restrict__ s, long long s_r,
+                                            long long s_g, int r0, int R, int k0, int K, int tid) {
+  const bool r_fast = q_r == 1;
+#pragma unroll
+  for (int j = 0; j < 64 * BK / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    const int rr = r_fast ? i % 64 : i / BK;
+    const int kk = r_fast ? i / 64 : i % BK;
+    const int r = r0 + rr, kg = k0 + kk;
+    float v = 0.f;
+    if (r < R && kg < K) {
+      const int code = packed ? (q[(long long)r * q_r + (long long)(kg >> 1) * q_k] >> ((kg & 1) * 4)) & 0xF
+                              : q[(long long)r * q_r + (long long)kg * q_k];
+      v = qt::e2m1_decode_scaled(code, s[(long long)r * s_r + (long long)(kg >> 5) * s_g]);
+    }
+    t[kk][rr] = v;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+gemm_fp4_mx_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k, int a_packed,
+                   const uint8_t* __restrict__ as, long long as_m, long long as_g,
+                   const uint8_t* __restrict__ b, long long b_n, long long b_k, int b_packed,
+                   const uint8_t* __restrict__ bs, long long bs_n, long long bs_g, float alpha,
+                   __nv_bfloat16* __restrict__ c, int M, int N, int K) {
+  __shared__ float As[BK][PAD];
+  __shared__ float Bs[BK][PAD];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    decode_tile(As, a, a_m, a_k, a_packed, as, as_m, as_g, m0, M, k0, K, tid);
+    decode_tile(Bs, b, b_n, b_k, b_packed, bs, bs_n, bs_g, n0, N, k0, K, tid);
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      if (m < M && n < N) c[(long long)m * N + n] = __float2bfloat16_rn(__fmul_rn(acc[i][j], alpha));
+    }
+}
+
+}  // namespace
+
+extern "C" int qt_gemm_fp4_mx(const void* a, long long a_m, long long a_k, int a_packed,
+                              const void* as, long long as_m, long long as_g, const void* b,
+                              long long b_n, long long b_k, int b_packed, const void* bs,
+                              long long bs_n, long long bs_g, float alpha, void* c, int M, int N,
+                              int K, void* stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_fp4_mx_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)a, a_m, a_k, a_packed, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n,
+      b_k, b_packed, (const uint8_t*)bs, bs_n, bs_g, alpha, (__nv_bfloat16*)c, M, N, K);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,100 @@
+"""Build and load the hand-written Hopper kernels.
+
+The CUDA sources in ``qutlass_tpu_torch/csrc`` have a plain C interface.
+At first use they are compiled with ``nvcc`` for ``sm_90a`` into one
+shared library under ``qutlass_tpu_torch/_build/`` (named by a hash of
+the sources and flags, so an edited source rebuilds) and loaded with
+``ctypes``.  Nothing here runs at import time, so the package imports on
+machines without ``nvcc`` or a GPU; a build or load failure raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("quantize_mx.cu", "quantize_mx_int8.cu", "gemm_int8_rank1.cu",
+           "gemm_fp4_mx.cu")
+# no --use_fast_math: the scale math must round like the fp32 reference;
+# --fmad=false keeps nvcc from contracting a*b+c in it
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "qt_quantize_mx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
+                       _LL, _P],
+    "qt_quantize_mx_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qt_gemm_int8_rank1": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _F, _P, _I, _I,
+                           _I, _P],
+    "qt_gemm_fp4_mx": [_P, _LL, _LL, _I, _P, _LL, _LL, _P, _LL, _LL, _I, _P,
+                       _LL, _LL, _F, _P, _I, _I, _I, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the Hopper kernels are built from "
+                           "qutlass_tpu_torch/csrc with the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in ("common.cuh",) + SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists;
+    return its path."""
+    out = BUILD_DIR / f"libqutlass_torch_{_digest()}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)       # atomic: a concurrent build sees a whole file
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.qt_error_string.argtypes = [ctypes.c_int]
+        lib.qt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().qt_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({err})")

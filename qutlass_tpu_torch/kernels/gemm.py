@@ -1,0 +1,111 @@
+"""Wrappers of the GEMM kernels K3 (``csrc/gemm_int8_rank1.cu``) and K4
+(``csrc/gemm_fp4_mx.cu``).
+
+Each wrapper routes by device: tensors on the CPU go to the kernel's
+plain version (``gemm_int8_rank1_plain`` / ``gemm_fp4_mx_plain``, in
+``ops.emulation``), tensors on a CUDA device to the kernel.  Operands
+are passed to the kernels as logical row views with their strides, so
+row-major, K-major and sliced scale buffers need no copy.  A launch adds
+one to ``dispatch.launch_counts``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import dispatch
+from ..ops import emulation as _emu
+from ..ops.emulation import matmul_int8_rank1_plain as gemm_int8_rank1_plain
+from . import _build
+
+_FP4_PLAIN = {"tn": _emu.matmul_mxf4_bf16_tn,
+              "kmajor": _emu.matmul_mxf4_bf16_kmajor,
+              "kmajor_codes": _emu.matmul_mxf4_bf16_kmajor_codes}
+
+
+def _alpha_float(alpha) -> float:
+    """Host value of alpha (a python number or a 1-element tensor)."""
+    if isinstance(alpha, torch.Tensor):
+        return float(alpha.reshape(()).to(torch.float32).item())
+    return float(torch.tensor(alpha, dtype=torch.float32))
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def gemm_int8_rank1(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
+                    sb: torch.Tensor, alpha, *, a_kmajor: bool,
+                    b_kmajor: bool) -> torch.Tensor:
+    """Kernel K3: C[M, N] = bf16(float(a' @ b'^T) * (sa * alpha) * sb).
+
+    ``a`` is int8 [K, M] when ``a_kmajor`` else [M, K]; ``b`` is int8
+    [K, N] when ``b_kmajor`` else [N, K]; sa f32 [M], sb f32 [N].
+    """
+    a_mk = a.T if a_kmajor else a
+    b_nk = b.T if b_kmajor else b
+    if not dispatch.on_cuda(a, b, sa, sb):
+        return gemm_int8_rank1_plain(a_mk, b_nk, sa, sb, alpha)
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"operands must be int8, got {a.dtype} / {b.dtype}")
+    (m, k), (n, kb) = a_mk.shape, b_nk.shape
+    if k != kb:
+        raise ValueError(f"operands disagree on K: {k} vs {kb}")
+    for name, s, ln in (("sa", sa, m), ("sb", sb, n)):
+        if s.dtype != torch.float32 or tuple(s.shape) != (ln,) or not s.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 [{ln}], got "
+                             f"{s.dtype} {tuple(s.shape)}")
+    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    err = _build.library().qt_gemm_int8_rank1(
+        a_mk.data_ptr(), a_mk.stride(0), a_mk.stride(1), b_nk.data_ptr(),
+        b_nk.stride(0), b_nk.stride(1), sa.data_ptr(), sb.data_ptr(),
+        _alpha_float(alpha), c.data_ptr(), m, n, k, _stream(a))
+    _build.check(err, "gemm_int8_rank1")
+    dispatch.note_launch("gemm_int8_rank1")
+    return c
+
+
+def gemm_fp4_mx_plain(a, b, a_sf, b_sf, alpha, *, layout: str):
+    """Plain version of K4 for ``layout`` in ("tn", "kmajor",
+    "kmajor_codes")."""
+    return _FP4_PLAIN[layout](a, b, a_sf, b_sf, alpha)
+
+
+def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
+                b_sf: torch.Tensor, alpha, *, layout: str) -> torch.Tensor:
+    """Kernel K4: C[M, N] = bf16((dq(a) @ dq(b)^T) * alpha).
+
+    ``layout="tn"``: a/b packed u8 [M, K/2] / [N, K/2], scales [M, K/32]
+    / [N, K/32].  ``"kmajor"``: a/b packed [K/2, M] / [K/2, N], scales
+    [K/32, M] / [K/32, N].  ``"kmajor_codes"``: a unpacked codes [K, M],
+    b packed [K/2, N].
+    """
+    if layout not in _FP4_PLAIN:
+        raise ValueError(f"invalid layout {layout!r}")
+    if not dispatch.on_cuda(a, b, a_sf, b_sf):
+        return gemm_fp4_mx_plain(a, b, a_sf, b_sf, alpha, layout=layout)
+    for name, t in (("a", a), ("b", b), ("a_sf", a_sf), ("b_sf", b_sf)):
+        if t.dtype != torch.uint8 or t.ndim != 2:
+            raise TypeError(f"{name} must be a 2-D uint8 tensor, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    tn = layout == "tn"
+    a_r, b_r = (a, b) if tn else (a.T, b.T)          # logical [rows, K or K/2]
+    as_r, bs_r = (a_sf, b_sf) if tn else (a_sf.T, b_sf.T)
+    a_packed = layout != "kmajor_codes"
+    m, n = a_r.shape[0], b_r.shape[0]
+    k = b_r.shape[1] * 2
+    if a_r.shape[1] * (2 if a_packed else 1) != k:
+        raise ValueError(f"operands disagree on K: {tuple(a.shape)} vs "
+                         f"{tuple(b.shape)} ({layout})")
+    if tuple(as_r.shape) != (m, k // 32) or tuple(bs_r.shape) != (n, k // 32):
+        raise ValueError(f"scale shapes {tuple(a_sf.shape)} / {tuple(b_sf.shape)} "
+                         f"do not match M={m}, N={n}, K={k} ({layout})")
+    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    err = _build.library().qt_gemm_fp4_mx(
+        a_r.data_ptr(), a_r.stride(0), a_r.stride(1), int(a_packed),
+        as_r.data_ptr(), as_r.stride(0), as_r.stride(1),
+        b_r.data_ptr(), b_r.stride(0), b_r.stride(1), 1,
+        bs_r.data_ptr(), bs_r.stride(0), bs_r.stride(1),
+        _alpha_float(alpha), c.data_ptr(), m, n, k, _stream(a))
+    _build.check(err, "gemm_fp4_mx")
+    dispatch.note_launch("gemm_fp4_mx")
+    return c

@@ -1,0 +1,13 @@
+"""Model family and serving harness on the MXFP4 W4A4 path."""
+from .convert import params_from_numpy, tensor_from_numpy
+from .serving import (decode_step, generate, init_cache, prefill,
+                      sample_logits)
+from .transformer import (LLAMA31_8B, LLAMA31_70B, QWEN3_8B, QWEN3_14B,
+                          QWEN3_32B, ModelConfig, forward, init_params,
+                          quantize_model_weights, quantize_weight, tiny_config)
+
+__all__ = ["ModelConfig", "QWEN3_8B", "QWEN3_14B", "QWEN3_32B", "LLAMA31_8B",
+           "LLAMA31_70B", "tiny_config", "init_params", "quantize_weight",
+           "quantize_model_weights", "forward", "init_cache", "prefill",
+           "decode_step", "sample_logits", "generate", "params_from_numpy",
+           "tensor_from_numpy"]

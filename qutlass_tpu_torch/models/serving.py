@@ -1,0 +1,212 @@
+"""Serving harness: KV-cache prefill + autoregressive decode (counterpart
+of ``qutlass_tpu.models.serving``, bf16 cache).
+
+``generate`` is a host loop with the semantics of the JAX package's
+dispatch loop: prefill, then one decode step per emitted token, every
+projection on the MXFP4 W4A4 path when ``quantized``.  Unlike the JAX
+package, the KV cache is updated IN PLACE (``_block`` writes into the
+cache tensors and returns the same dict), which saves a copy of the
+cache per layer per step; ``prefill`` always builds a fresh cache.
+"""
+from __future__ import annotations
+
+import torch
+
+from .transformer import (ModelConfig, _head_logits, _linear, _mlp, _rms_norm,
+                          _rope)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
+    """Per-layer bf16 KV cache: k/v [B, max_len, kv_heads, head_dim]."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+            for _ in range(cfg.num_layers)]
+
+
+def _attend(cfg: ModelConfig, qh, kc, vc, pos_limit) -> torch.Tensor:
+    """q [B, T, H, D] against cache k/v [B, L, KVH, D], masked to
+    positions < pos_limit + per-query causality offset (and to the
+    sliding window).  ``pos_limit``: int, or [B] for ragged batches."""
+    b, t = qh.shape[0], qh.shape[1]
+    l = kc.shape[1]
+    dev = qh.device
+    rep = cfg.num_heads // cfg.num_kv_heads
+    q5 = qh.reshape(b, t, cfg.num_kv_heads, rep, cfg.head_dim)
+    scores = torch.einsum("btgrd,bsgd->bgrts", q5.to(torch.float32),
+                          kc.to(torch.float32)) * (cfg.head_dim ** -0.5)
+    pl = torch.as_tensor(pos_limit, device=dev)
+    qpos = pl[..., None] - t + torch.arange(t, device=dev)   # [t] or [B, t]
+    qpos = qpos.expand(b, t)
+    spos = torch.arange(l, device=dev)
+    mask = spos[None, None, :] <= qpos[:, :, None]            # [b, t, l]
+    if cfg.sliding_window:
+        mask &= spos[None, None, :] > qpos[:, :, None] - cfg.sliding_window
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrts,bsgd->btgrd", probs, vc.to(torch.float32))
+    return out.reshape(b, t, cfg.num_heads, cfg.head_dim).to(torch.bfloat16)
+
+
+def _block(cfg: ModelConfig, layer: dict, x: torch.Tensor, cache_l: dict,
+           start_pos, h, method: str, quantized: bool):
+    """One transformer block over x [B, T, D], writing the KV cache at
+    positions [start_pos, start_pos + T).  ``start_pos`` is an int, or a
+    [B] tensor for ragged decode (then T must be 1)."""
+    b, t, _ = x.shape
+    xin = _rms_norm(x, layer["input_norm"], cfg.rms_eps)
+    qh = _linear(xin, layer["q_proj"], h, method, quantized)
+    kh = _linear(xin, layer["k_proj"], h, method, quantized)
+    vh = _linear(xin, layer["v_proj"], h, method, quantized)
+    qh = qh.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    kh = kh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    vh = vh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        qh = _rms_norm(qh, layer["q_norm"], cfg.rms_eps)
+        kh = _rms_norm(kh, layer["k_norm"], cfg.rms_eps)
+    offsets = torch.arange(t, device=x.device)
+    dense = isinstance(start_pos, int)
+    positions = start_pos + offsets if dense else start_pos[:, None] + offsets
+    qh = _rope(qh, positions, cfg.rope_theta)
+    kh = _rope(kh, positions, cfg.rope_theta)
+    if dense:
+        cache_l["k"][:, start_pos:start_pos + t] = kh
+        cache_l["v"][:, start_pos:start_pos + t] = vh
+    else:                                  # ragged decode: one row each
+        rows = torch.arange(b, device=x.device)
+        cache_l["k"][rows, start_pos] = kh[:, 0]
+        cache_l["v"][rows, start_pos] = vh[:, 0]
+    attn = _attend(cfg, qh, cache_l["k"], cache_l["v"], start_pos + t)
+    attn = attn.reshape(b, t, cfg.num_heads * cfg.head_dim)
+    x = x + _linear(attn, layer["o_proj"], h, method, quantized)
+    xin = _rms_norm(x, layer["post_attn_norm"], cfg.rms_eps)
+    return x + _mlp(xin, layer, h, method, quantized), cache_l
+
+
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _head_logits(x, params.get("lm_head", params["embed"]))
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, h=None, *,
+            max_len: int, quantized: bool = False, method: str = "quest",
+            lengths: torch.Tensor | None = None):
+    """Prefill [B, T] prompt -> (last-position logits [B, vocab], cache).
+
+    ``lengths`` [B] enables ragged batches: prompts are right-padded to
+    T and each row's logits are read at ``lengths[b] - 1``; the pad
+    positions' cache slots are overwritten by decode before any query
+    attends to them.
+    """
+    b, _ = tokens.shape
+    cache = init_cache(cfg, b, max_len, tokens.device)
+    x = params["embed"][tokens]
+    for layer, cache_l in zip(params["layers"], cache):
+        x, _ = _block(cfg, layer, x, cache_l, 0, h, method, quantized)
+    last = (x[:, -1] if lengths is None
+            else x[torch.arange(b, device=x.device), lengths - 1])
+    return _logits(cfg, params, last), cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: dict, cache: list, token, pos, h=None,
+                *, quantized: bool = False, method: str = "quest"):
+    """One decode step: token [B] at position ``pos`` (an int, or a [B]
+    tensor for ragged batches).  Returns (logits [B, vocab], cache),
+    the cache updated in place."""
+    x = params["embed"][token][:, None]                   # [B, 1, D]
+    for layer, cache_l in zip(params["layers"], cache):
+        x, _ = _block(cfg, layer, x, cache_l, pos, h, method, quantized)
+    return _logits(cfg, params, x[:, 0]), cache
+
+
+def sample_logits(logits: torch.Tensor, generator: torch.Generator | None = None,
+                  *, temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 1.0) -> torch.Tensor:
+    """Sample token ids [B] from logits [B, V]: temperature 0 is greedy
+    argmax; top_k keeps the k highest logits (0 = all); top_p keeps the
+    smallest prefix of the sorted distribution reaching top_p."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits.to(torch.float32) / temperature
+    if top_k and top_k > 0:
+        k = min(top_k, logits.shape[-1])
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p < 1.0:
+        srt = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        keep = probs.cumsum(-1) - probs < top_p
+        cutoff = torch.where(keep, srt, torch.full_like(srt, float("inf"))
+                             ).amin(-1, keepdim=True)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _logprob(logits: torch.Tensor, token: torch.Tensor) -> torch.Tensor:
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return lp.gather(-1, token[:, None])[:, 0]
+
+
+@torch.no_grad()
+def generate(cfg: ModelConfig, params: dict, prompt: torch.Tensor, h=None, *,
+             steps: int, max_len: int, lengths: torch.Tensor | None = None,
+             quantized: bool = False, method: str = "quest",
+             generator: torch.Generator | None = None,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+             eos_id: int | None = None, pad_id: int = 0,
+             return_logprobs: bool = False):
+    """Autoregressive generation: prompt [B, T] -> tokens [B, steps].
+
+    Greedy by default; pass ``generator`` with ``temperature`` / ``top_k``
+    / ``top_p`` to sample.  ``eos_id`` pads each row with ``pad_id`` after
+    its first end-of-sequence token (fixed ``steps`` iterations, no early
+    exit).  ``lengths`` [B] serves right-padded ragged prompts.
+    ``return_logprobs=True`` also returns each emitted token's
+    log-probability under the untempered softmax (0.0 after EOS).
+
+    The cache writes are validated here on the host, so an undersized
+    ``max_len`` or bad ``lengths`` raise instead of writing out of range.
+    """
+    b, t = prompt.shape
+    if lengths is None:
+        if t + steps > max_len:
+            raise ValueError(
+                f"max_len={max_len} < prompt_len({t}) + steps({steps}): "
+                "the KV cache cannot hold the generated positions")
+    else:
+        lo, hi = int(lengths.min()), int(lengths.max())
+        if lo < 1 or hi > t:
+            raise ValueError(f"lengths must satisfy 1 <= lengths <= T({t}); "
+                             f"got range [{lo}, {hi}]")
+        if hi + steps > max_len:
+            raise ValueError(
+                f"max_len={max_len} < max(lengths)({hi}) + steps({steps}): "
+                "ragged cache writes would fall outside the cache")
+
+    def pick(logits):
+        return sample_logits(logits, generator, temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+
+    logits, cache = prefill(cfg, params, prompt, h, max_len=max_len,
+                            quantized=quantized, method=method, lengths=lengths)
+    token = pick(logits)
+    lp = (_logprob(logits, token) if return_logprobs
+          else torch.zeros((b,), device=prompt.device))
+    done = torch.zeros((b,), dtype=torch.bool, device=prompt.device)
+    pos = t if lengths is None else lengths.to(torch.long)
+    toks, lps = [], []
+    for _ in range(steps):
+        logits, cache = decode_step(cfg, params, cache, token, pos, h,
+                                    quantized=quantized, method=method)
+        nxt = pick(logits)
+        nlp = _logprob(logits, nxt) if return_logprobs else lp
+        toks.append(torch.where(done, torch.full_like(token, pad_id), token))
+        lps.append(torch.where(done, torch.zeros_like(lp), lp))
+        if eos_id is not None:
+            done = done | (token == eos_id)
+        token, lp, pos = nxt, nlp, pos + 1
+    out = torch.stack(toks, dim=1)
+    return (out, torch.stack(lps, dim=1)) if return_logprobs else out

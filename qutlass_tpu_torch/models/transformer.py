@@ -1,0 +1,240 @@
+"""Decoder-only transformer family (Qwen3 / Llama-3.1 geometries) with
+MXFP4 W4A4 quantized linear layers (counterpart of
+``qutlass_tpu.models.transformer``, MX routes).
+
+Parameters are a dict mirroring the JAX pytree (HF-style names), so
+weights convert one to one (``models/convert.py``).  Quantized
+projections are the stored dicts of :func:`quantize_weight`; every
+projection then runs the MXFP4 path of ``nn.linear.mx_linear``.  PyTorch
+runs eagerly and does not re-fuse reductions, so the JAX package's
+fusion pins have no counterpart here.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..nn.linear import mx_linear, quantize_weight
+
+# The attention einsums and rotations are fp32 reference math: no TF32.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+               "up_proj", "down_proj")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int = 151_936
+    hidden_size: int = 4096
+    intermediate_size: int = 12_288
+    num_layers: int = 36
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 1_000_000.0
+    rms_eps: float = 1e-6
+    qk_norm: bool = True           # Qwen3 style; False for Llama
+    tie_embeddings: bool = False
+    # each query attends only the last ``sliding_window`` positions
+    sliding_window: int | None = None
+
+
+QWEN3_8B = ModelConfig()
+QWEN3_14B = ModelConfig(hidden_size=5120, intermediate_size=17_408,
+                        num_layers=40, num_heads=40)
+QWEN3_32B = ModelConfig(hidden_size=5120, intermediate_size=25_600,
+                        num_layers=64, num_heads=64)
+LLAMA31_8B = ModelConfig(vocab_size=128_256, hidden_size=4096,
+                         intermediate_size=14_336, num_layers=32,
+                         num_heads=32, num_kv_heads=8, head_dim=128,
+                         rope_theta=500_000.0, qk_norm=False)
+LLAMA31_70B = ModelConfig(vocab_size=128_256, hidden_size=8192,
+                          intermediate_size=28_672, num_layers=80,
+                          num_heads=64, num_kv_heads=8, head_dim=128,
+                          rope_theta=500_000.0, qk_norm=False)
+
+
+def tiny_config(**kw) -> ModelConfig:
+    """Small config for tests / dry runs."""
+    base = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                qk_norm=True)
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+                device=None, dtype=torch.bfloat16) -> dict:
+    """Random-initialized parameter dict (HF-style naming), drawn from
+    ``generator`` on ``device`` (the generator's device by default)."""
+    device = generator.device if device is None else torch.device(device)
+
+    def normal(shape, std):
+        x = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (x * std).to(dtype)
+
+    def dense(out_dim, in_dim):
+        return normal((out_dim, in_dim), in_dim ** -0.5)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=device)
+
+    qd = cfg.num_heads * cfg.head_dim
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = {
+            "input_norm": ones(cfg.hidden_size),
+            "post_attn_norm": ones(cfg.hidden_size),
+            "q_proj": dense(qd, cfg.hidden_size),
+            "k_proj": dense(kvd, cfg.hidden_size),
+            "v_proj": dense(kvd, cfg.hidden_size),
+            "o_proj": dense(cfg.hidden_size, qd),
+            "gate_proj": dense(cfg.intermediate_size, cfg.hidden_size),
+            "up_proj": dense(cfg.intermediate_size, cfg.hidden_size),
+            "down_proj": dense(cfg.hidden_size, cfg.intermediate_size),
+        }
+        if cfg.qk_norm:
+            layer["q_norm"] = ones(cfg.head_dim)
+            layer["k_norm"] = ones(cfg.head_dim)
+        layers.append(layer)
+    params = {"embed": normal((cfg.vocab_size, cfg.hidden_size), 0.02),
+              "final_norm": ones(cfg.hidden_size), "layers": layers}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(cfg.vocab_size, cfg.hidden_size)
+    return params
+
+
+def quantize_model_weights(cfg: ModelConfig, params: dict, h: torch.Tensor,
+                           method: str = "quest",
+                           weight_format: str = "int8") -> dict:
+    """Pre-quantize every linear weight to MXFP4 (see
+    :func:`quantize_weight` for ``weight_format``).  The lm head stays
+    bf16.  Returns a new dict; the bf16 weights of ``params`` are not
+    kept by it."""
+    del cfg
+    out = dict(params)
+    out["layers"] = []
+    for layer in params["layers"]:
+        ql = dict(layer)
+        for name in PROJECTIONS:
+            ql[name] = quantize_weight(layer[name], h=h, method=method,
+                                       weight_format=weight_format)
+        out["layers"].append(ql)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding over the last dim of [B, T, H, D].
+
+    ``positions``: [T] (shared across the batch) or [B, T] (per row).
+    """
+    d = x.shape[-1]
+    inv = torch.tensor(1.0 / (theta ** (np.arange(0, d, 2) / d)),
+                       dtype=torch.float32, device=x.device)
+    ang = positions[..., None].to(torch.float32) * inv
+    if positions.ndim == 1:
+        ang = ang[None]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _linear(x: torch.Tensor, w, h: torch.Tensor, method: str,
+            quantized: bool) -> torch.Tensor:
+    """Apply a (possibly quantized) linear to [..., K]."""
+    if not quantized:
+        return (x.to(torch.float32) @ w.to(torch.float32).T).to(x.dtype)
+    return mx_linear(x, w, h, method)
+
+
+def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """bf16 hidden states x lm head -> fp32 logits (fp32 accumulation)."""
+    return x.to(torch.float32) @ head.to(torch.float32).T
+
+
+def _prefill_attention(cfg: ModelConfig, qh, kh, vh, causal) -> torch.Tensor:
+    """Grouped-query causal attention, [b, t, h, d] layout, fp32 einsums
+    without materializing the KV repeat."""
+    b, t = qh.shape[0], qh.shape[1]
+    rep = cfg.num_heads // cfg.num_kv_heads
+    q5 = qh.reshape(b, t, cfg.num_kv_heads, rep, cfg.head_dim)
+    scores = torch.einsum("btgrd,bsgd->bgrts", q5.to(torch.float32),
+                          kh.to(torch.float32)) * (cfg.head_dim ** -0.5)
+    scores = scores.masked_fill(~causal[None, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    attn = torch.einsum("bgrts,bsgd->btgrd", probs, vh.to(torch.float32))
+    return attn.reshape(b, t, cfg.num_heads * cfg.head_dim)
+
+
+def _mlp(x: torch.Tensor, layer: dict, h, method, quantized) -> torch.Tensor:
+    gate = _linear(x, layer["gate_proj"], h, method, quantized)
+    up = _linear(x, layer["up_proj"], h, method, quantized)
+    act = (torch.nn.functional.silu(gate.to(torch.float32))
+           * up.to(torch.float32)).to(x.dtype)
+    return _linear(act, layer["down_proj"], h, method, quantized)
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            h: torch.Tensor | None = None, *, quantized: bool = False,
+            method: str = "quest") -> torch.Tensor:
+    """Prefill forward: tokens [B, T] int -> logits [B, T, vocab] fp32.
+
+    ``quantized=True`` expects params from :func:`quantize_model_weights`
+    and runs every projection through the MXFP4 W4A4 path.
+    """
+    b, t = tokens.shape
+    dev = tokens.device
+    x = params["embed"][tokens]
+    positions = torch.arange(t, device=dev)
+    causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+    if cfg.sliding_window:
+        causal &= positions[None, :] > positions[:, None] - cfg.sliding_window
+
+    for layer in params["layers"]:
+        xin = _rms_norm(x, layer["input_norm"], cfg.rms_eps)
+        qh = _linear(xin, layer["q_proj"], h, method, quantized)
+        kh = _linear(xin, layer["k_proj"], h, method, quantized)
+        vh = _linear(xin, layer["v_proj"], h, method, quantized)
+        qh = qh.reshape(b, t, cfg.num_heads, cfg.head_dim)
+        kh = kh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        vh = vh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            qh = _rms_norm(qh, layer["q_norm"], cfg.rms_eps)
+            kh = _rms_norm(kh, layer["k_norm"], cfg.rms_eps)
+        qh = _rope(qh, positions, cfg.rope_theta)
+        kh = _rope(kh, positions, cfg.rope_theta)
+        attn = _prefill_attention(cfg, qh, kh, vh, causal).to(x.dtype)
+        x = x + _linear(attn, layer["o_proj"], h, method, quantized)
+        xin = _rms_norm(x, layer["post_attn_norm"], cfg.rms_eps)
+        x = x + _mlp(xin, layer, h, method, quantized)
+
+    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _head_logits(x, params.get("lm_head", params["embed"]))
+
+
+__all__ = ["ModelConfig", "QWEN3_8B", "QWEN3_14B", "QWEN3_32B", "LLAMA31_8B",
+           "LLAMA31_70B", "tiny_config", "init_params", "quantize_weight",
+           "quantize_model_weights", "forward"]

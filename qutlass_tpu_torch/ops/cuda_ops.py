@@ -1,0 +1,34 @@
+"""The public MX ops mapped onto the hand-written kernels (counterpart of
+``qutlass_tpu.ops.pallas_ops``).
+
+Every function here calls a kernel wrapper, which launches the Hopper
+kernel for CUDA tensors and runs its plain version for CPU tensors; no
+shape is routed around a kernel.
+"""
+from __future__ import annotations
+
+from ..kernels.gemm import gemm_fp4_mx
+from ..kernels.quantize import quantize_mx, quantize_mx_int8
+
+
+def fused_quantize_mx(a, h, *, rot_size: int, method: str = "quest",
+                      return_mask: bool = False, layout: str = "rowmajor"):
+    return quantize_mx(a, h, rot_size=rot_size, method=method,
+                       return_mask=return_mask, layout=layout)
+
+
+def fused_quantize_mx_int8(a, h, *, rot_size: int, method: str = "quest"):
+    return quantize_mx_int8(a.reshape(-1, a.shape[-1]), h, rot_size=rot_size,
+                            method=method)
+
+
+def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+    return gemm_fp4_mx(a, b, a_sf, b_sf, alpha, layout="tn")
+
+
+def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+    return gemm_fp4_mx(at, bt, a_sft, b_sft, alpha, layout="kmajor")
+
+
+def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
+    return gemm_fp4_mx(at, bt, a_sft, b_sft, alpha, layout="kmajor_codes")

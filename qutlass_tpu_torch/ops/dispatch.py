@@ -1,0 +1,44 @@
+"""Kernel dispatch by tensor device, and the per-kernel launch counters.
+
+The JAX package chooses between Pallas kernels and XLA emulation at run
+time.  Here the choice follows the tensors alone: tensors on the CPU go
+to a kernel's plain PyTorch version, tensors on a CUDA device go to the
+hand-written Hopper kernel, and anything else raises.  There is no
+switch that sends CUDA tensors to a plain version.
+
+``launch_counts`` maps each kernel's name to the number of times its
+wrapper launched it; only a kernel launch adds to it, so a run can show
+which kernels its main path went through.
+"""
+from __future__ import annotations
+
+import torch
+
+KERNELS = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1",
+           "gemm_fp4_mx")
+
+launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        launch_counts[name] = 0
+
+
+def note_launch(name: str) -> None:
+    launch_counts[name] += 1
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device (launch the
+    kernel), False when every tensor lies on the CPU (plain version).
+    Mixed or other devices raise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"operands lie on different devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}: expected cpu or cuda")

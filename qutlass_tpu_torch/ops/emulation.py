@@ -1,0 +1,183 @@
+"""Plain PyTorch versions of the MX ops (counterpart of
+``qutlass_tpu.ops.emulation``, MX parts).
+
+Each function here is the plain version of one hand-written kernel in
+``qutlass_tpu_torch/csrc``: the kernel wrappers call it for tensors on
+the CPU, the CPU tests hold it against the JAX package, and
+``chip_smoke.py`` holds each kernel against it on the card.  It runs on
+any device and uses the shared codecs, so its arithmetic is the spec
+the kernels follow.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..formats import codecs as C
+from ..utils import round_up
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def rotate(x: torch.Tensor, h: torch.Tensor, rot_size: int) -> torch.Tensor:
+    """Apply the per-``rot_size``-chunk rotation in fp32: [..., G, r] @ h."""
+    xr = x.reshape(-1, rot_size).to(torch.float32)
+    hh = h.reshape(rot_size, rot_size).to(x.dtype).to(torch.float32)
+    return (xr @ hh).reshape(x.shape)
+
+
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """int e2m1 codes [..., K] -> packed uint8 [..., K/2] (2i low nibble)."""
+    c = codes.to(torch.int32)
+    return (c[..., 0::2] | (c[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_codes(packed: torch.Tensor) -> torch.Tensor:
+    """packed uint8 [..., K/2] -> int32 codes [..., K]."""
+    p = packed.to(torch.int32)
+    return torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-1).reshape(
+        *p.shape[:-1], -1)
+
+
+def pack_mask(bits: torch.Tensor) -> torch.Tensor:
+    """bool [..., K] -> uint8 [..., K/8] (bit i of byte j = element 8j+i)."""
+    b = bits.to(torch.int32).reshape(*bits.shape[:-1], -1, 8)
+    w = 1 << torch.arange(8, dtype=torch.int32, device=bits.device)
+    return (b * w).sum(-1).to(torch.uint8)
+
+
+def padded_scales(bytes2d: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Place [rows, cols] scale bytes into the x128/x4 padded buffer."""
+    pr, pc = round_up(rows, 128), round_up(cols, 4)
+    if (pr, pc) == (rows, cols):
+        return bytes2d
+    out = torch.zeros((pr, pc), dtype=bytes2d.dtype, device=bytes2d.device)
+    out[:rows, :cols] = bytes2d
+    return out
+
+
+def as_alpha(alpha, device) -> torch.Tensor:
+    """alpha (python float or a 1-element tensor) -> 0-dim fp32 tensor."""
+    return torch.as_tensor(alpha, dtype=torch.float32, device=device).reshape(())
+
+
+# ---------------------------------------------------------------------------
+# fused quantize (plain version of kernel K1)
+# ---------------------------------------------------------------------------
+
+def fused_quantize_mx(a: torch.Tensor, h: torch.Tensor, *, rot_size: int,
+                      method: str = "quest", return_mask: bool = False,
+                      layout: str = "rowmajor"):
+    """Rotate + quantize to MXFP4 (group 32, e8m0 scales).
+
+    ``layout="rowmajor"``: (packed u8 [..., K/2], scale bytes u8 padded
+    [round_up(rows, 128), round_up(K/32, 4)][, mask u8 [..., K/8]]).
+    ``layout="kmajor"``: (packed u8 [K/2, rows], scales u8 [K/32, rows]
+    [, mask u8 [K/8, rows]]).  ``layout="kmajor_codes"``: unpacked codes
+    u8 [K, rows] instead of packed nibbles.
+    """
+    k = a.shape[-1]
+    rows = a.numel() // k
+    xh = rotate(a, h, rot_size)
+    g = xh.reshape(-1, k // 32, 32)
+    if method == "quest":
+        scale = C.mx_scale_quest(g.sum(-1), (g * g).sum(-1), 32.0)
+    else:
+        scale = C.mx_scale_absmax(g.abs().amax(-1))
+    scale_f, byte = C.pow2_floor_e8m0(scale)
+    q = g / scale_f[..., None]
+    if method != "quest":
+        q = q * 3.0
+    q = q.reshape(xh.shape)
+
+    codes = C.e2m1_rtne_codes(q)
+    sbytes = byte.reshape(rows, k // 32).to(torch.uint8)
+    mask = pack_mask(q.abs() < 6.0) if return_mask else None
+    if layout in ("kmajor", "kmajor_codes"):
+        c2 = codes.reshape(rows, k)
+        out = (c2.T.to(torch.uint8).contiguous() if layout == "kmajor_codes"
+               else pack_codes(c2).T.contiguous())
+        res = (out, sbytes.T.contiguous())
+        if return_mask:
+            res += (mask.reshape(rows, k // 8).T.contiguous(),)
+        return res
+    res = (pack_codes(codes), padded_scales(sbytes, rows, k // 32))
+    return res + (mask,) if return_mask else res
+
+
+def fused_quantize_mx_int8(a: torch.Tensor, h: torch.Tensor, *,
+                           rot_size: int, method: str = "quest"):
+    """Plain version of kernel K2: the kmajor-codes quantize composed with
+    ``int8path.encode_int8``.  Returns (a' int8 [K, rows], row scale f32
+    [rows], scale bytes u8 [K/32, rows])."""
+    from . import int8path as I8
+    cq, cs = fused_quantize_mx(a, h, rot_size=rot_size, method=method,
+                               layout="kmajor_codes")
+    ai, sa, _ = I8.encode_int8(cq, cs, kmajor=True)
+    return ai, sa, cs
+
+
+# ---------------------------------------------------------------------------
+# block-scaled GEMM (plain version of kernel K4)
+# ---------------------------------------------------------------------------
+
+def dequant_fp4(codes: torch.Tensor, scale_bytes: torch.Tensor) -> torch.Tensor:
+    """e2m1 codes [R, K] + e8m0 bytes [R, K/32] -> exact bf16 [R, K]."""
+    sexp = scale_bytes.to(torch.int32).repeat_interleave(32, dim=-1)
+    return C.e2m1_decode_scaled_bf16(codes, sexp)
+
+
+def matmul_mxf4_codes(a_codes: torch.Tensor, b_codes: torch.Tensor,
+                      a_sf: torch.Tensor, b_sf: torch.Tensor,
+                      alpha) -> torch.Tensor:
+    """out[M, N] = bf16((dq(a) @ dq(b)^T) * alpha) from codes [M, K] /
+    [N, K] and scale bytes [M, K/32] / [N, K/32].
+
+    The dequantized operands are exact in bf16 and their products exact
+    in fp32; the sum is taken in fp64 (exact for any real operand) and
+    rounded once to fp32, which is what an fp32 accumulation gives
+    whenever its partial sums are exact, then scaled by alpha in fp32.
+    """
+    av = dequant_fp4(a_codes, a_sf).to(torch.float64)
+    bv = dequant_fp4(b_codes, b_sf).to(torch.float64)
+    acc = (av @ bv.T).to(torch.float32)
+    return (acc * as_alpha(alpha, acc.device)).to(torch.bfloat16)
+
+
+def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+    """W4A4 block-scaled GEMM: a/b packed u8 [M, K/2] / [N, K/2],
+    scale bytes [M, K/32] / [N, K/32] (row-major)."""
+    return matmul_mxf4_codes(unpack_codes(a), unpack_codes(b), a_sf, b_sf,
+                             alpha)
+
+
+def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+    """K-major variant: at/bt packed u8 [K/2, M] / [K/2, N], scales
+    [K/32, M] / [K/32, N]."""
+    return matmul_mxf4_bf16_tn(at.T, bt.T, a_sft.T, b_sft.T, alpha)
+
+
+def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
+    """Unpacked-activation-codes variant: at codes u8 [K, M]."""
+    return matmul_mxf4_codes(at.T, unpack_codes(bt.T), a_sft.T, b_sft.T,
+                             alpha)
+
+
+# ---------------------------------------------------------------------------
+# int8 GEMM + rank-1 epilogue (plain version of kernel K3)
+# ---------------------------------------------------------------------------
+
+def matmul_int8_rank1_plain(a_mk: torch.Tensor, b_nk: torch.Tensor,
+                            sa: torch.Tensor, sb: torch.Tensor,
+                            alpha) -> torch.Tensor:
+    """C[M, N] = bf16(float(a' @ b'^T) * (sa[m] * alpha) * sb[n]) from
+    logical int8 views a_mk [M, K] and b_nk [N, K] (any strides).
+
+    The contraction runs in fp64, which is exact for |acc| <= 9216*K
+    < 2^53 and has a matmul on every device (CUDA has no integer one);
+    the epilogue multiplies in exactly the order of the JAX op.
+    """
+    acc = (a_mk.to(torch.float64) @ b_nk.to(torch.float64).T).to(torch.float32)
+    al = as_alpha(alpha, acc.device)
+    return (acc * (sa[:, None] * al) * sb[None, :]).to(torch.bfloat16)

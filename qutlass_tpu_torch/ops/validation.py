@@ -1,0 +1,44 @@
+"""Argument validation for the public ops (PyTorch counterpart of
+``qutlass_tpu.ops.validation``): dtype and shape checks that raise
+descriptive errors before any kernel sees the tensors."""
+from __future__ import annotations
+
+import torch
+
+
+def check_bf16(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} must be bfloat16, got {x.dtype}")
+
+
+def check_rotation(h: torch.Tensor, k: int) -> int:
+    rot = h.shape[-1]
+    if h.ndim != 2 or h.shape[0] != rot:
+        raise ValueError(f"rotation must be square, got {tuple(h.shape)}")
+    if rot not in (16, 32, 64, 128):
+        raise ValueError(f"rotation size must be in (16, 32, 64, 128), "
+                         f"got {rot}")
+    if k % rot != 0:
+        raise ValueError(f"last dim {k} must be divisible by the rotation "
+                         f"size {rot}")
+    return rot
+
+
+def check_group_dim(name: str, k: int, gs: int) -> None:
+    if k % gs != 0:
+        raise ValueError(f"{name}: K={k} must be divisible by the "
+                         f"quantization group size {gs}")
+    if k < gs:
+        raise ValueError(f"{name}: K={k} must be >= group size {gs}")
+
+
+def check_matmul_tn(a: torch.Tensor, b: torch.Tensor, gs: int):
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"operands must be 2-D, got {tuple(a.shape)} / "
+                         f"{tuple(b.shape)}")
+    if a.shape[1] != b.shape[1]:
+        raise ValueError(f"TN operands must share packed K: {tuple(a.shape)} "
+                         f"vs {tuple(b.shape)}")
+    k = a.shape[1] * 2
+    check_group_dim("matmul", k, gs)
+    return a.shape[0], b.shape[0], k

@@ -1,0 +1,59 @@
+"""Layout helpers (PyTorch counterpart of ``qutlass_tpu.utils``).
+
+Block scales travel as plain row-major ``[rows, K/32]`` (or K-major
+``[K/32, rows]``) bytes; ``to_blocked`` is a flatten kept for API parity
+with the reference (qutlass/utils.py:160-193).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return ceil_div(a, b) * b
+
+
+def to_blocked(scales: torch.Tensor, use_triton_kernel: bool = False) -> torch.Tensor:
+    """Scale layout transform: a flatten of the (already padded) scale
+    matrix.  ``use_triton_kernel`` is accepted for signature parity and
+    ignored."""
+    del use_triton_kernel
+    return scales.reshape(-1)
+
+
+def from_blocked(flat: torch.Tensor, k: int, gs: int) -> torch.Tensor:
+    """Inverse of :func:`to_blocked`: recover the padded 2-D scale matrix."""
+    return flat.reshape(-1, round_up(k // gs, 4))
+
+
+def pad_to_block(x: torch.Tensor, dims, blocksize: int) -> torch.Tensor:
+    """Zero-pad ``dims`` of ``x`` up to a multiple of ``blocksize``."""
+    pads = [0] * (2 * x.ndim)
+    for d in dims:
+        d = d % x.ndim
+        # F.pad lists pads from the last dim backwards: (left, right) pairs
+        pads[2 * (x.ndim - 1 - d) + 1] = round_up(x.shape[d], blocksize) - x.shape[d]
+    if not any(pads):
+        return x
+    return F.pad(x, pads)
+
+
+def hadamard_matrix(n: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """Normalized Sylvester-Hadamard rotation ``H_n / sqrt(n)``."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"Hadamard size must be a power of 2, got {n}")
+    h = np.array([[1.0]])
+    while h.shape[0] < n:
+        h = np.block([[h, h], [h, -h]])
+    return torch.tensor(h * n ** -0.5, dtype=dtype, device=device)
+
+
+def identity_matrix(n: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """Identity "rotation" (quantize without rotating)."""
+    return torch.eye(n, dtype=dtype, device=device)

@@ -80,6 +80,9 @@ def pytest_configure(config):
         "markers",
         "slow: heavy test, skipped by default; QUTLASS_TPU_TEST_FULL=1 "
         "(or -m slow) runs it")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (PyTorch port); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

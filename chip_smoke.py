@@ -4,20 +4,29 @@
 Phases, in order; any failure exits non-zero before the result lines:
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions
-  1. build the four Hopper kernels from ``qutlass_tpu_torch/csrc``
+  1. build the seven Hopper kernels from ``qutlass_tpu_torch/csrc``
   2. hold each kernel against its plain PyTorch version at the main
-     path's shapes and time both (CUDA events after warm-up)
+     paths' shapes and time both (CUDA events after warm-up), beside
+     the card's bound for the same work and, where one PyTorch call
+     computes the same function, that call's time
   3. the ``gpu``-marked tests, ``tests/test_torch_gpu.py``
-  4. serve four ragged requests at Qwen3-8B width (seeded random
-     weights, quantized on the card): 32 greedy tokens with the weights
-     stored as int8 (the default), checked against a step-by-step
-     replay, then the same requests with the weights stored as packed
-     fp4; the kernels' launch counters are reset before and read after
+  4. MXFP4 serving: four ragged requests at Qwen3-8B width (seeded
+     random weights, quantized on the card), 32 greedy tokens with the
+     weights stored as int8 (the default), checked against a
+     step-by-step replay, then the same requests with the weights
+     stored as packed fp4
+  5. NVFP4 serving, the same requests: int8-stored weights with the
+     exact per-call activation scale, then with calibrated static
+     scales, each checked against a replay, then fp4-stored weights
 
-Then one JSON line of per-kernel results and, last, the result line.
+Phases 4 and 5 each reset the kernels' launch counters just before they
+drive their path and read them just after.  Then one JSON line of
+per-kernel results and, last, the result line.
 
-Usage: python3 chip_smoke.py [--layers N]
-(``--layers`` cuts depth only; the default is the model's 36 layers.)
+Usage: python3 chip_smoke.py [--layers N] [--profile]
+(``--layers`` cuts depth only; the default is the model's 36 layers.
+``--profile`` adds, for each served configuration, the device time by
+kernel over three decode steps and one prefill, from ``torch.profiler``.)
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ SHAPES_KN = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
 TIMED = (512, 4096, 12288)          # (M, K, N) whose times go to the JSON line
 CODE_BUDGET = 1e-4
 STEPS = 32                          # greedy tokens per request
+LENS = [128, 96, 64, 17]            # the ragged requests' prompt lengths
 KERNELS = {
     "quantize_mx": ("qutlass_tpu_torch/csrc/quantize_mx.cu",
                     "qutlass_tpu/kernels/quantize.py:158"),
@@ -44,7 +54,17 @@ KERNELS = {
                         "qutlass_tpu/ops/int8path.py:148"),
     "gemm_fp4_mx": ("qutlass_tpu_torch/csrc/gemm_fp4_mx.cu",
                     "qutlass_tpu/kernels/gemm.py:168"),
+    "quantize_nv": ("qutlass_tpu_torch/csrc/quantize_nv.cu",
+                    "qutlass_tpu/kernels/quantize.py:225"),
+    "quantize_nv_int8": ("qutlass_tpu_torch/csrc/quantize_nv_int8.cu",
+                         "qutlass_tpu/kernels/quantize.py:694"),
+    "gemm_fp4_nv": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
+                    "qutlass_tpu/kernels/gemm.py:168"),
 }
+# the H100 SXM's published peaks: HBM3 rate, dense bf16 and int8 tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+ROT = 32
 
 
 class SmokeFailure(Exception):
@@ -56,14 +76,35 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def bound(nbytes: float, ops: float, kind: str):
+    """(least ms, what bounds it): the larger of the bytes over the
+    card's memory rate and the operations over its peak for ``kind``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def quantize_bound(m: int, k: int, out_bytes_per_elem: float, group: int,
+                   extra_bytes: int = 0):
+    """A rotate + quantize of bf16 [m, k]: read x once (2 B/elem) and the
+    rotation, write codes and one scale byte per group; the rotation is
+    a bf16 product of 2*ROT operations per element."""
+    nbytes = 2 * m * k + 2 * ROT * ROT + m * k * out_bytes_per_elem + m * k // group
+    return bound(nbytes + extra_bytes, 2 * ROT * m * k, "bf16")
+
+
 def timed_ms(torch, fn, iters: int = 10) -> float:
     """Mean device time of ``fn`` in ms: CUDA events around ``iters``
-    calls after three warm-up calls."""
+    calls after three warm-up calls.  The timed calls are queued behind
+    a device-side sleep (~50 ms), so the card runs them back to back and
+    the host's issue rate (tens of microseconds a call from Python) does
+    not set the time of a small kernel."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -76,7 +117,45 @@ def timed_ms(torch, fn, iters: int = 10) -> float:
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def _recorder(results: dict):
+    def record(name, shape, err, ms=None, plain_ms=None, extra="", bnd=None,
+               lib=None):
+        """Keep the largest error; keep times, bound and library time when
+        ``shape`` is the timed one (N None for a quantizer)."""
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if shape[:2] == TIMED[:2] and shape[2] in (None, TIMED[2]) and ms is not None:
+            r["ms"], r["plain_ms"] = ms, plain_ms
+            r["bound_ms"], r["bound_by"] = bnd
+            r["library_ms"] = lib
+        times = "" if ms is None else f" ms={ms:.4f} plain_ms={plain_ms:.4f}"
+        if bnd is not None:
+            times += f" bound_ms={bnd[0]:.6f} ({bnd[1]})"
+        if lib is not None:
+            times += f" library_ms={lib:.4f}"
+        print(f"phase 2 {name} M,K,N={shape} max_abs_err={err}{times}{extra}")
+    return record
+
+
+def _int_mm_ms(torch, a_mk, b_nk):
+    """One library call computing K3's int8 product: torch._int_mm (int32
+    out, no epilogue; cuBLAS takes M > 16 only).  None where it refuses."""
+    try:
+        a, b = a_mk.contiguous(), b_nk.contiguous().T
+        return timed_ms(torch, lambda: torch._int_mm(a, b))
+    except RuntimeError as e:
+        print(f"phase 2 torch._int_mm refused {tuple(a_mk.shape)} x "
+              f"{tuple(b_nk.shape)}: {str(e).splitlines()[0]}")
+        return None
+
+
+def gemm_bound(m, n, k, a_bytes, b_bytes, kind):
+    """A GEMM: read both operands (and their scales) once, write bf16 C."""
+    return bound(a_bytes + b_bytes + 2 * m * n, 2 * m * n * k, kind)
+
+
 def compare_kernels(torch, results: dict) -> None:
+    """K1-K4, the MXFP4 path's kernels."""
     import qutlass_tpu_torch as qt
     from qutlass_tpu_torch.kernels import gemm as G
     from qutlass_tpu_torch.kernels import quantize as Q
@@ -85,18 +164,11 @@ def compare_kernels(torch, results: dict) -> None:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    h = qt.hadamard_matrix(32, device=dev)
+    h = qt.hadamard_matrix(ROT, device=dev)
+    record = _recorder(results)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
-
-    def record(name, shape, err, ms=None, plain_ms=None, extra=""):
-        r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if shape[:2] == TIMED[:2] and shape[2] in (None, TIMED[2]) and ms is not None:
-            r["ms"], r["plain_ms"] = ms, plain_ms
-        times = "" if ms is None else f" ms={ms:.4f} plain_ms={plain_ms:.4f}"
-        print(f"phase 2 {name} M,K,N={shape} max_abs_err={err}{times}{extra}")
 
     def dq_rows(codes_rk, scales_gr):        # codes [rows, K], scales [K/32, rows]
         return E.dequant_fp4(codes_rk, scales_gr.T).float()
@@ -116,7 +188,8 @@ def compare_kernels(torch, results: dict) -> None:
             ms = timed_ms(torch, lambda: Q.quantize_mx(x, h, rot_size=32, layout=layout))
             plain = timed_ms(torch, lambda: Q.quantize_mx_plain(x, h, rot_size=32,
                                                                layout=layout))
-        record("quantize_mx", shape, err, ms, plain, f" layout={layout} code_mismatch={rate}")
+        record("quantize_mx", shape, err, ms, plain, f" layout={layout} code_mismatch={rate}",
+               quantize_bound(*x.shape, 0.5, 32))
         return got
 
     # activations [M, K] for both quantizers
@@ -135,7 +208,8 @@ def compare_kernels(torch, results: dict) -> None:
             err = ((ga.float() - wa.float()) * gs[None, :]).abs().max().item()
             ms = timed_ms(torch, lambda: Q.quantize_mx_int8(x, h, rot_size=32))
             plain = timed_ms(torch, lambda: Q.quantize_mx_int8_plain(x, h, rot_size=32))
-            record("quantize_mx_int8", shape, err, ms, plain, f" a_mismatch={rate}")
+            record("quantize_mx_int8", shape, err, ms, plain, f" a_mismatch={rate}",
+                   quantize_bound(m, k, 1.0, 32, 4 * m))
             acts[m, k] = (x, ga, gs)
 
     for k, n in SHAPES_KN:
@@ -152,8 +226,10 @@ def compare_kernels(torch, results: dict) -> None:
             ms = timed_ms(torch, lambda: I8.matmul_mxf4_bf16_int8_kmajor(ai, wi, sa, sb, 1.0))
             plain = timed_ms(torch, lambda: G.gemm_int8_rank1_plain(ai.T, wi, sa, sb, 1.0))
             bf16 = timed_ms(torch, lambda: x @ w.T)
+            lib = _int_mm_ms(torch, ai.T, wi) if m > 16 else None
             record("gemm_int8_rank1", shape, 0.0, ms, plain,     # bitwise, required above
-                   f" torch_bf16_matmul_ms={bf16:.4f}")
+                   f" torch_bf16_matmul_ms={bf16:.4f}",
+                   gemm_bound(m, n, k, m * k + 4 * m, n * k + 4 * n, "int8"), lib)
             # K4: the fp4-weight GEMM, bitwise vs plain and vs K3 at deficit <= 3
             xqt, xst = Q.quantize_mx(x, h, rot_size=32, layout="kmajor")
             y4 = G.gemm_fp4_mx(xqt, wqt, xst, wst, 1.0, layout="kmajor")
@@ -169,7 +245,9 @@ def compare_kernels(torch, results: dict) -> None:
                                                        layout="kmajor"))
             plain = timed_ms(torch, lambda: G.gemm_fp4_mx_plain(xqt, wqt, xst, wst, 1.0,
                                                                 layout="kmajor"))
-            record("gemm_fp4_mx", shape, 0.0, ms, plain, f" vs_K3={same}")
+            record("gemm_fp4_mx", shape, 0.0, ms, plain, f" vs_K3={same}",
+                   gemm_bound(m, n, k, m * k // 2 + m * k // 32, n * k // 2 + n * k // 32,
+                              "bf16"))
     # the reference-parity drive: row-major quantize + matmul_mxf4_bf16_tn
     m, k, n = 512, 4096, 4096
     xq, xs = check_quantize(randn(m, k), "rowmajor", (m, k, None), False)
@@ -180,12 +258,223 @@ def compare_kernels(torch, results: dict) -> None:
     record("gemm_fp4_mx", (m, k, n), 0.0, extra=" layout=tn")
 
 
+def _ulp_diff(torch, a, b):
+    """(mismatch rate, largest distance in bf16 ulps) of two bf16 tensors
+    of finite values with equal signs."""
+    ia, ib = a.view(torch.int16).int(), b.view(torch.int16).int()
+    return (ia != ib).float().mean().item(), (ia - ib).abs().max().item()
+
+
+def compare_nv_kernels(torch, results: dict) -> None:
+    """K5-K7 and K3 in the NV path's K-major x K-major order."""
+    import qutlass_tpu_torch as qt
+    from qutlass_tpu_torch.formats.codecs import e2m1_decode_f32
+    from qutlass_tpu_torch.kernels import gemm as G
+    from qutlass_tpu_torch.kernels import quantize as Q
+    from qutlass_tpu_torch.nn import linear as L
+    from qutlass_tpu_torch.ops import emulation as E
+    from qutlass_tpu_torch.ops import int8path as I8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    h = qt.hadamard_matrix(ROT, device=dev)
+    record = _recorder(results)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def gscale(t):                       # the path's global scale, on the card
+        return L.nv_global_scale(L.rotated_amax(t, h))
+
+    def dec(codes):
+        return e2m1_decode_f32(codes)
+
+    def check_quantize(x, gs, layout, shape, time_it):
+        got = Q.quantize_nv(x, h, gs, rot_size=ROT, layout=layout)
+        want = Q.quantize_nv_plain(x, h, gs, rot_size=ROT, layout=layout)
+        srate = (got[1] != want[1]).float().mean().item()
+        require(srate <= CODE_BUDGET, f"K5 scale-byte mismatch {srate} at {shape} {layout}")
+        unpack = (lambda q: E.unpack_codes(q.T).T) if layout == "kmajor" else E.unpack_codes
+        cg, cw = unpack(got[0]), unpack(want[0])
+        rate = (cg != cw).float().mean().item()
+        require(rate <= CODE_BUDGET, f"K5 code mismatch {rate} at {shape} {layout}")
+        err = (dec(cg) - dec(cw)).abs().max().item()
+        ms = plain = None
+        if time_it:
+            ms = timed_ms(torch, lambda: Q.quantize_nv(x, h, gs, rot_size=ROT, layout=layout))
+            plain = timed_ms(torch, lambda: Q.quantize_nv_plain(x, h, gs, rot_size=ROT,
+                                                               layout=layout))
+        record("quantize_nv", shape, err, ms, plain,
+               f" layout={layout} scale_mismatch={srate} code_mismatch={rate}",
+               quantize_bound(*x.shape, 0.5, 16))
+        return got
+
+    acts = {}
+    for m in SHAPES_M:
+        for k in sorted({k for k, _ in SHAPES_KN}):
+            x = randn(m, k)
+            gs = gscale(x)
+            shape = (m, k, None)
+            xq = check_quantize(x, gs, "kmajor", shape, True)
+            ga, gsig, gb = Q.quantize_nv_int8(x, h, gs, rot_size=ROT)
+            wa, wsig, wb = Q.quantize_nv_int8_plain(x, h, gs, rot_size=ROT)
+            srate = (gb != wb).float().mean().item()
+            require(srate <= CODE_BUDGET, f"K6 scale-byte mismatch {srate} at {shape}")
+            same = (gb == wb).all(0)
+            require(torch.equal(ga[:, same], wa[:, same]) and torch.equal(gsig[same], wsig[same]),
+                    f"K6 a' or sigma differ where the bytes agree at {shape}")
+            err = ((ga.float() - wa.float()) * wsig[None, :]).abs().max().item()
+            ms = timed_ms(torch, lambda: Q.quantize_nv_int8(x, h, gs, rot_size=ROT))
+            plain = timed_ms(torch, lambda: Q.quantize_nv_int8_plain(x, h, gs, rot_size=ROT))
+            record("quantize_nv_int8", shape, err, ms, plain,
+                   f" scale_mismatch={srate} rows_with_equal_bytes={same.float().mean().item()}",
+                   quantize_bound(m, k, 1.0, 16, 4 * m))
+            acts[m, k] = (x, gs, xq, ga, gsig)
+
+    for k, n in SHAPES_KN:
+        w = randn(n, k, scale=k ** -0.5)
+        gw = gscale(w)
+        wqt, wst = check_quantize(w, gw, "kmajor", (None, k, n), False)
+        wi, sb = I8.prepare_weight_nv_int8(wqt, wst)
+        for m in SHAPES_M:
+            shape = (m, k, n)
+            x, gx, (xqt, xst), ai, sa = acts[m, k]
+            alpha = 1.0 / (gx * gw)                      # on the card, as on the path
+            # K3 in the K-major x K-major order of NV int8 weights
+            y3 = I8.matmul_mxf4_bf16_int8_kk(ai, wi, sa, sb, alpha)
+            want = G.gemm_int8_rank1_plain(ai.T, wi.T, sa, sb, alpha)
+            require(torch.equal(y3, want), f"K3 kk differs from its plain version at {shape}")
+            ms = timed_ms(torch, lambda: I8.matmul_mxf4_bf16_int8_kk(ai, wi, sa, sb, alpha))
+            plain = timed_ms(torch, lambda: G.gemm_int8_rank1_plain(ai.T, wi.T, sa, sb, alpha))
+            print(f"phase 2 gemm_int8_rank1 kk (NV int8 weights [K, N]) M,K,N={shape} "
+                  f"bitwise ms={ms:.4f} plain_ms={plain:.4f}")
+            # K7: the NV fp4-weight GEMM
+            y7 = G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha, layout="kmajor")
+            want7 = G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha, layout="kmajor")
+            rate, ulps = _ulp_diff(torch, y7, want7)
+            require(rate <= CODE_BUDGET and ulps <= 1,
+                    f"K7 vs plain: mismatch {rate}, {ulps} ulp at {shape}")
+            err = (y7.float() - want7.float()).abs().max().item()
+            ms = timed_ms(torch, lambda: G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha,
+                                                       layout="kmajor"))
+            plain = timed_ms(torch, lambda: G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha,
+                                                                layout="kmajor"))
+            record("gemm_fp4_nv", shape, err, ms, plain,
+                   f" mismatch={rate} max_ulp={ulps}",
+                   gemm_bound(m, n, k, m * k // 2 + m * k // 16, n * k // 2 + n * k // 16,
+                              "bf16"))
+    # the reference-parity drive at tests/test_nvfp4.py's shape: row-major
+    # quantize + matmul_nvf4_bf16_tn, bitwise
+    m, n, k = 504, 512, 2048
+    one = torch.tensor([1.0], device=dev)
+    aq, asf = check_quantize(randn(m, k, scale=25.0), one, "rowmajor", (m, k, None), False)
+    bq, bsf = check_quantize(randn(n, k, scale=25.0), one, "rowmajor", (n, k, None), False)
+    y = qt.matmul_nvf4_bf16_tn(aq, bq, asf, bsf, one)
+    want = G.gemm_fp4_nv_plain(aq, bq, asf[:m, :k // 16], bsf[:n, :k // 16], one, layout="tn")
+    require(torch.equal(y, want), "K7 tn layout differs from its plain version")
+    record("gemm_fp4_nv", (m, k, n), 0.0, extra=" layout=tn bitwise")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve at Qwen3-8B width
 # ---------------------------------------------------------------------------
 
-def serve(torch, layers: int, steps: int) -> dict:
+MX_PATH = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1", "gemm_fp4_mx")
+NV_PATH = ("quantize_nv", "quantize_nv_int8", "gemm_int8_rank1", "gemm_fp4_nv")
+
+
+def sync_ms(torch, t0):
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def requests(torch, cfg, steps: int):
+    """The seeded model inputs: generator (for the weights), rotation, the
+    four right-padded ragged prompts and their lengths, and max_len."""
     import qutlass_tpu_torch as qt
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t = max(LENS)
+    lengths = torch.tensor(LENS, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (len(LENS), t), generator=gen, device=dev)
+    prompt = prompt.masked_fill(torch.arange(t, device=dev)[None] >= lengths[:, None], 0)
+    return gen, qt.hadamard_matrix(ROT, device=dev), prompt, lengths, t + steps
+
+
+def run_and_replay(torch, M, cfg, params, prompt, h, lengths, max_len, steps, tag):
+    """Warm up, then time prefill and generate on the host clock, and check
+    the generated tokens against a step-by-step replay (also timed).
+    Returns (prefill logits, tokens, prefill ms, decode ms/step, generate ms)."""
+    run = dict(quantized=True, lengths=lengths)
+    M.generate(cfg, params, prompt, h, steps=2, max_len=max_len, **run)   # warm-up
+    t0 = time.perf_counter()
+    logits, _ = M.prefill(cfg, params, prompt, h, max_len=max_len, **run)
+    prefill_ms = sync_ms(torch, t0)
+    t0 = time.perf_counter()
+    toks, lps = M.generate(cfg, params, prompt, h, steps=steps, max_len=max_len,
+                           return_logprobs=True, **run)
+    generate_ms = sync_ms(torch, t0)
+    require(tuple(toks.shape) == (len(LENS), steps), f"{tag}: tokens shape {tuple(toks.shape)}")
+    require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{tag}: token out of range")
+    require(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(lps).all()),
+            f"{tag}: non-finite logits or logprobs")
+    # the served tokens equal a step-by-step replay of prefill + decode
+    lg, cache = M.prefill(cfg, params, prompt, h, max_len=max_len, **run)
+    require(torch.equal(lg, logits), f"{tag}: prefill is not deterministic")
+    tok, replay, pos = lg.argmax(-1), [], lengths.clone()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        replay.append(tok)
+        lg, cache = M.decode_step(cfg, params, cache, tok, pos, h, quantized=True)
+        tok, pos = lg.argmax(-1), pos + 1
+    ms_per_token = sync_ms(torch, t0) / steps
+    require(torch.equal(torch.stack(replay, 1), toks), f"{tag}: generate differs from the replay")
+    return logits, toks, prefill_ms, ms_per_token, generate_ms
+
+
+def profile_path(torch, M, cfg, params, prompt, h, lengths, max_len, tag,
+                 decode_ms=None, steps: int = 3) -> None:
+    """Print the device time by kernel of one prefill and of ``steps``
+    decode steps (torch.profiler), the device's busy time, and its idle
+    share against ``decode_ms``, the unprofiled host-clock step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def table(prof, n, what, wall_ms):
+        rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        idle = "" if wall_ms is None else f", {100 * (1 - busy / wall_ms):.1f}% idle against " \
+                                          f"{wall_ms:.2f} ms unprofiled"
+        print(f"profile {tag} {what}: device busy {busy:.3f} ms{idle}")
+        for name, ms, cnt in rows[:12]:
+            print(f"profile {tag} {what}: {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt} {name[:100]}")
+
+    run = dict(quantized=True, lengths=lengths)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        _, cache = M.prefill(cfg, params, prompt, h, max_len=max_len, **run)
+        torch.cuda.synchronize()
+    table(prof, 1, "prefill", None)
+    tok, pos = prompt[:, 0].clone(), lengths.clone()
+    with profile(activities=acts) as prof:
+        for _ in range(steps):
+            _, cache = M.decode_step(cfg, params, cache, tok, pos, h, quantized=True)
+            pos = pos + 1
+        torch.cuda.synchronize()
+    table(prof, steps, "decode step", decode_ms)
+
+
+def cosine(a, b) -> float:
+    a, b = a.float().ravel(), b.float().ravel()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def serve(torch, layers: int, steps: int, prof: bool = False) -> dict:
+    """Phase 4, the MXFP4 path."""
     from qutlass_tpu_torch import models as M
     from qutlass_tpu_torch.models.transformer import PROJECTIONS
     from qutlass_tpu_torch.ops import dispatch
@@ -193,19 +482,7 @@ def serve(torch, layers: int, steps: int) -> dict:
     cfg = dataclasses.replace(M.QWEN3_8B, num_layers=layers)
     if layers != M.QWEN3_8B.num_layers:
         print(f"phase 4 depth cut: {layers} of {M.QWEN3_8B.num_layers} layers")
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    h = qt.hadamard_matrix(32, device=dev)
-    lens = [128, 96, 64, 17]
-    t = max(lens)
-    lengths = torch.tensor(lens, device=dev)
-    prompt = torch.randint(0, cfg.vocab_size, (len(lens), t), generator=gen, device=dev)
-    prompt = prompt.masked_fill(torch.arange(t, device=dev)[None] >= lengths[:, None], 0)
-    max_len = t + steps
-
-    def sync_ms(t0):
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
+    gen, h, prompt, lengths, max_len = requests(torch, cfg, steps)
 
     dispatch.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -214,36 +491,14 @@ def serve(torch, layers: int, steps: int) -> dict:
     w_int8 = M.quantize_model_weights(cfg, params, h)
     w_fp4 = M.quantize_model_weights(cfg, params, h, weight_format="fp4")
     del params
-    load_ms = sync_ms(t0)
+    load_ms = sync_ms(torch, t0)
     fallback = sum("wqt" in layer[n] for layer in w_int8["layers"] for n in PROJECTIONS)
     print(f"phase 4 weights: {7 * layers} projections quantized twice in {load_ms:.0f} ms; "
           f"int8 storage keeps {fallback} as fp4 (deficit > 3)")
 
     run = dict(quantized=True, lengths=lengths)
-    M.generate(cfg, w_int8, prompt, h, steps=2, max_len=max_len, **run)   # warm-up
-    t0 = time.perf_counter()
-    logits, _ = M.prefill(cfg, w_int8, prompt, h, max_len=max_len, **run)
-    prefill_ms = sync_ms(t0)
-    t0 = time.perf_counter()
-    toks, lps = M.generate(cfg, w_int8, prompt, h, steps=steps, max_len=max_len,
-                           return_logprobs=True, **run)
-    generate_ms = sync_ms(t0)
-    require(tuple(toks.shape) == (len(lens), steps), f"tokens shape {tuple(toks.shape)}")
-    require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "token out of range")
-    require(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(lps).all()),
-            "non-finite logits or logprobs")
-    # the served tokens equal a step-by-step replay of prefill + decode
-    lg, cache = M.prefill(cfg, w_int8, prompt, h, max_len=max_len, **run)
-    require(torch.equal(lg, logits), "prefill is not deterministic")
-    tok, replay, pos = lg.argmax(-1), [], lengths.clone()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        replay.append(tok)
-        lg, cache = M.decode_step(cfg, w_int8, cache, tok, pos, h, quantized=True)
-        tok, pos = lg.argmax(-1), pos + 1
-    ms_per_token = sync_ms(t0) / steps
-    require(torch.equal(torch.stack(replay, 1), toks), "generate differs from the replay")
-    del cache
+    logits, toks, prefill_ms, ms_per_token, generate_ms = run_and_replay(
+        torch, M, cfg, w_int8, prompt, h, lengths, max_len, steps, "phase 4 MX int8")
     # the same requests with fp4-stored weights (kernels K1 + K4)
     logits4, _ = M.prefill(cfg, w_fp4, prompt, h, max_len=max_len, **run)
     toks4 = M.generate(cfg, w_fp4, prompt, h, steps=steps, max_len=max_len, **run)
@@ -251,8 +506,7 @@ def serve(torch, layers: int, steps: int) -> dict:
     counts = dict(dispatch.launch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    a, b = logits.float().ravel(), logits4.float().ravel()
-    cos = float(a @ b / (a.norm() * b.norm()))
+    cos = cosine(logits, logits4)
     require(bool(torch.isfinite(logits4).all()), "non-finite fp4 logits")
     # per linear the two storages agree bitwise wherever the activation
     # row's deficit is <= 3; rows beyond it round in the int8 evaluator,
@@ -260,22 +514,93 @@ def serve(torch, layers: int, steps: int) -> dict:
     # H100), so this bounds gross faults only
     require(cos > 0.9, f"fp4-stored vs int8-stored prefill logits cosine {cos}")
     agree = float((toks4 == toks).float().mean())
-    print(f"phase 4 int8 weights: prefill {prefill_ms:.1f} ms for {sum(lens)} prompt tokens "
-          f"(4 ragged requests, lengths {lens}), decode {ms_per_token:.2f} ms/step "
+    print(f"phase 4 int8 weights: prefill {prefill_ms:.1f} ms for {sum(LENS)} prompt tokens "
+          f"(4 ragged requests, lengths {LENS}), decode {ms_per_token:.2f} ms/step "
           f"(batch 4, {steps} steps), generate {generate_ms:.1f} ms; host clock "
           f"after a warm-up")
     print(f"phase 4 fp4 weights: prefill logits cosine to int8 weights {cos:.6f}, "
           f"token agreement {agree:.3f}")
     print(f"phase 4 peak device memory {peak_gib:.2f} GiB; launch counts {counts}")
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched by the main path")
+    for name in MX_PATH:
+        require(counts[name] > 0, f"kernel {name} was not launched by the MX path")
     print(f"phase 4 first request's tokens: {toks[0, :16].tolist()}")
+    if prof:
+        profile_path(torch, M, cfg, w_int8, prompt, h, lengths, max_len, "MX int8",
+                     ms_per_token)
+        profile_path(torch, M, cfg, w_fp4, prompt, h, lengths, max_len, "MX fp4")
+    return counts
+
+
+def serve_nv(torch, layers: int, steps: int, prof: bool = False) -> dict:
+    """Phase 5, the NVFP4 path: int8-stored weights with the exact
+    per-call activation scale, then with calibrated static scales, then
+    fp4-stored weights."""
+    from qutlass_tpu_torch import models as M
+    from qutlass_tpu_torch.ops import dispatch
+
+    cfg = dataclasses.replace(M.QWEN3_8B, num_layers=layers)
+    if layers != M.QWEN3_8B.num_layers:
+        print(f"phase 5 depth cut: {layers} of {M.QWEN3_8B.num_layers} layers")
+    gen, h, prompt, lengths, max_len = requests(torch, cfg, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen)
+    w_int8 = M.quantize_model_weights(cfg, params, h, fmt="nv")
+    w_fp4 = M.quantize_model_weights(cfg, params, h, fmt="nv", weight_format="fp4")
+    del params
+    print(f"phase 5 weights: {7 * layers} projections quantized to NVFP4 twice (int8 and "
+          f"fp4 storage) in {sync_ms(torch, t0):.0f} ms")
+
+    exact = run_and_replay(torch, M, cfg, w_int8, prompt, h, lengths, max_len, steps,
+                           "phase 5 NV int8 exact gsx")
+    if prof:
+        profile_path(torch, M, cfg, w_int8, prompt, h, lengths, max_len, "NV int8 exact",
+                     exact[3])
+    t0 = time.perf_counter()
+    M.calibrate_nv_gsx(cfg, w_int8, prompt, h)
+    calib_ms = sync_ms(torch, t0)
+    static = run_and_replay(torch, M, cfg, w_int8, prompt, h, lengths, max_len, steps,
+                            "phase 5 NV int8 static gsx")
+    run = dict(quantized=True, lengths=lengths)
+    logits4, _ = M.prefill(cfg, w_fp4, prompt, h, max_len=max_len, **run)
+    toks4 = M.generate(cfg, w_fp4, prompt, h, steps=steps, max_len=max_len, **run)
+    torch.cuda.synchronize()
+    counts = dict(dispatch.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    require(bool(torch.isfinite(logits4).all()), "non-finite NV fp4 logits")
+    cos4 = cosine(exact[0], logits4)
+    # the int8 storage rounds each weight row to int8 (<= rowmax/254) and
+    # each activation row likewise; fp4 storage evaluates the NVFP4 values
+    # exactly, and 36 random-weight W4A4 layers amplify the difference
+    require(cos4 > 0.9, f"NV fp4-stored vs int8-stored prefill logits cosine {cos4}")
+    for tag, (_, _, pre, dec, gen_ms) in (("exact gsx", exact), ("static gsx", static)):
+        print(f"phase 5 NV int8 weights, {tag}: prefill {pre:.1f} ms for {sum(LENS)} prompt "
+              f"tokens (4 ragged requests, lengths {LENS}), decode {dec:.2f} ms/step "
+              f"(batch 4, {steps} steps), generate {gen_ms:.1f} ms; host clock after a "
+              f"warm-up; tokens equal the replay")
+    print(f"phase 5 calibration (one forward over the prompts) {calib_ms:.0f} ms; static vs "
+          f"exact gsx: prefill logits cosine {cosine(exact[0], static[0]):.6f}, token "
+          f"agreement {float((static[1] == exact[1]).float().mean()):.3f}")
+    print(f"phase 5 NV fp4 weights: prefill logits cosine to int8 weights {cos4:.6f}, "
+          f"token agreement {float((toks4 == exact[1]).float().mean()):.3f}")
+    print(f"phase 5 peak device memory {peak_gib:.2f} GiB; launch counts {counts}")
+    for name in NV_PATH:
+        require(counts[name] > 0, f"kernel {name} was not launched by the NV path")
+    print(f"phase 5 first request's tokens: {exact[1][0, :16].tolist()}")
+    if prof:
+        profile_path(torch, M, cfg, w_int8, prompt, h, lengths, max_len, "NV int8 static",
+                     static[3])
+        profile_path(torch, M, cfg, w_fp4, prompt, h, lengths, max_len, "NV fp4")
     return counts
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=36)
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     if not (ROOT / "qutlass_tpu_torch" / "csrc").is_dir():
         raise SmokeFailure("qutlass_tpu_torch/ not found beside chip_smoke.py")
@@ -304,9 +629,11 @@ def main() -> int:
 
     # phase 2
     results = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep,
-                      "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None}
+                      "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
+                      "bound_ms": None, "bound_by": None, "library_ms": None}
                for name, (src, rep) in KERNELS.items()}
     compare_kernels(torch, results)
+    compare_nv_kernels(torch, results)
 
     # phase 3
     t0 = time.perf_counter()
@@ -319,10 +646,13 @@ def main() -> int:
     print(f"phase 3 gpu tests ({time.perf_counter() - t0:.0f} s): {tail[0]}")
     require(test.returncode == 0, f"gpu tests failed:\n{test.stdout[-6000:]}\n{test.stderr[-2000:]}")
 
-    # phase 4
-    counts = serve(torch, args.layers, STEPS)
-    for name, c in counts.items():
-        results[name]["launches"] = c
+    # phases 4 and 5; K3 runs on both paths, and its launches are the sum
+    counts = serve(torch, args.layers, STEPS, args.profile)
+    for name in MX_PATH:
+        results[name]["launches"] += counts[name]
+    counts = serve_nv(torch, args.layers, STEPS, args.profile)
+    for name in NV_PATH:
+        results[name]["launches"] += counts[name]
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,16 @@
-"""qutlass_tpu_torch — the MXFP4 W4A4 path of ``qutlass_tpu`` in PyTorch,
-with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""qutlass_tpu_torch — the MXFP4 and NVFP4 W4A4 serving paths of
+``qutlass_tpu`` in PyTorch, with hand-written CUDA kernels for the NVIDIA
+H100 (sm_90a).
 
 Same op names, argument conventions and stored bytes as the JAX package:
 
   * e2m1 data: ``uint8``, two values per byte, element 2i in the low nibble
-  * e8m0 scales: ``uint8`` exponent bytes (``torch.float8_e8m0fnu`` views
-    are accepted)
-  * K-major operands are ``[K, rows]``; row-major scales ``[rows, K/32]``
+  * e8m0 scales (MX, group 32) and e4m3 scales (NV, group 16): ``uint8``
+    bytes (``torch.float8_e8m0fnu`` / ``float8_e4m3fn`` views are
+    accepted)
+  * K-major operands are ``[K, rows]``; row-major scales ``[rows, K/gs]``
+  * an NV global scale or a GEMM alpha: a number, or a 0-dim or
+    1-element fp32 tensor (kept on the card when it lies there)
 
 Tensors on a CUDA device run the kernels in ``qutlass_tpu_torch/csrc``
 (built with ``nvcc`` at first use); tensors on the CPU run each kernel's
@@ -31,6 +35,8 @@ __all__ = [
     "fusedQuantizeMx", "fusedQuantizeMxInt8", "fused_quantize_mx",
     "fused_quantize_mx_int8", "matmul_mxf4_bf16_tn", "matmul_mxf4_bf16_kmajor",
     "matmul_mxf4_bf16_kmajor_codes", "matmul_ada_mxf4_bf16_tn",
+    "fusedQuantizeNv", "fusedQuantizeNvInt8", "fused_quantize_nv",
+    "fused_quantize_nv_int8", "matmul_nvf4_bf16_tn", "matmul_nvf4_bf16_kmajor",
     "to_blocked", "from_blocked", "pad_to_block", "hadamard_matrix",
     "identity_matrix",
 ]
@@ -126,8 +132,49 @@ def fusedQuantizeMxInt8(a: torch.Tensor, h: torch.Tensor, *,
                                        method=method)
 
 
+def fusedQuantizeNv(a: torch.Tensor, h: torch.Tensor, global_scale, *,
+                    method: str = "abs_max", layout: str = "rowmajor"):
+    """Fused rotation + NVFP4 quantization (group 16, e4m3 scales).
+
+    a: [..., K] bf16, K % 16 == 0; h: [r, r] rotation.  Returns (e2m1 u8
+    [..., K/2], e4m3 u8 padded [round_up(rows, 128), round_up(K/16, 4)]);
+    ``layout="kmajor"`` returns (e2m1 u8 [K/2, rows], e4m3 u8 [K/16,
+    rows]) for :func:`matmul_nvf4_bf16_kmajor`.  abs-max scales are
+    ``e4m3(global_scale * amax / 6)``.
+    """
+    _check_method(method)
+    if layout not in ("rowmajor", "kmajor"):
+        raise ValueError(f"invalid layout {layout!r}")
+    _val.check_bf16("a", a)
+    k = a.shape[-1]
+    rot = _val.check_rotation(h, k)
+    _val.check_group_dim("fusedQuantizeNv", k, 16)
+    return _ops.fused_quantize_nv(a.contiguous(), h, global_scale, rot_size=rot,
+                                  method=method, layout=layout)
+
+
+def fusedQuantizeNvInt8(a: torch.Tensor, h: torch.Tensor, global_scale, *,
+                        method: str = "abs_max"):
+    """Fused rotation + NVFP4 quantization + int8 encode (the activation
+    path of the NV int8 evaluator, ``ops/int8path.py``).
+
+    Returns (a' int8 [K, rows] natural K order, sigma f32 [rows], e4m3
+    scale bytes u8 [K/16, rows]); the encode rounds by at most sigma/2
+    per element.
+    """
+    _check_method(method)
+    _val.check_bf16("a", a)
+    k = a.shape[-1]
+    rot = _val.check_rotation(h, k)
+    _val.check_group_dim("fusedQuantizeNvInt8", k, 16)
+    return _ops.fused_quantize_nv_int8(a.contiguous(), h, global_scale,
+                                       rot_size=rot, method=method)
+
+
 fused_quantize_mx = fusedQuantizeMx
 fused_quantize_mx_int8 = fusedQuantizeMxInt8
+fused_quantize_nv = fusedQuantizeNv
+fused_quantize_nv_int8 = fusedQuantizeNvInt8
 
 
 # ---------------------------------------------------------------------------
@@ -166,3 +213,25 @@ def matmul_ada_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
     """Small-batch alias of :func:`matmul_mxf4_bf16_tn` (one kernel covers
     both regimes)."""
     return matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha)
+
+
+def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+    """NVFP4 GEMM: out[M, N] = (dq(a) @ dq(b)^T) * alpha in bf16.
+
+    a: u8 [M, K/2], b: u8 [N, K/2]; e4m3 scales row-major [rows, K/16]
+    (or the quantizer's padded buffer, or its :func:`to_blocked`
+    flattening).
+    """
+    m, n, k = _val.check_matmul_tn(a, b, 16)
+    a_sf = _norm_scales(a_sf, m, k // 16)
+    b_sf = _norm_scales(b_sf, n, k // 16)
+    return _ops.matmul_nvf4_bf16_tn(_as_bytes(a), _as_bytes(b), a_sf, b_sf,
+                                    alpha)
+
+
+def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+    """K-major NVFP4 GEMM: at u8 [K/2, M], bt u8 [K/2, N], e4m3 scales u8
+    [K/16, M] / [K/16, N] (``fusedQuantizeNv(..., layout="kmajor")``)."""
+    return _ops.matmul_nvf4_bf16_kmajor(_as_bytes(at), _as_bytes(bt),
+                                        _as_bytes(a_sft), _as_bytes(b_sft),
+                                        alpha)

@@ -1,4 +1,4 @@
-// Shared device codecs for the MXFP4 kernels.
+// Shared device codecs for the MXFP4 and NVFP4 kernels.
 //
 // Each function is the bit-for-bit CUDA twin of the function of the same
 // name in qutlass_tpu_torch/formats/codecs.py.  The scale arithmetic is
@@ -106,6 +106,90 @@ __device__ __forceinline__ int group_scale_byte(float v, int method) {
 __device__ __forceinline__ float group_q(float v, int byte, int method) {
   float q = __fmul_rn(v, e8m0_decode(254 - byte));
   return method == 0 ? q : __fmul_rn(q, 3.0f);
+}
+
+// ---------------------------------------------------------------------------
+// e4m3 (the NVFP4 block scales)
+// ---------------------------------------------------------------------------
+
+// float32(1/6), rounded from the double as PyTorch rounds a Python float
+constexpr float kSixth = (float)(1.0 / 6.0);
+
+// |x| (NaN cleared, clamped to 448) -> exact e4m3-rounded magnitude: RTNE
+// to 3 mantissa bits on the fp32 bits in the normal range, the 2^-9 grid
+// below 2^-6 (codecs._e4m3_round_mag)
+__device__ __forceinline__ float e4m3_round_mag(float a) {
+  const int bits = __float_as_int(a);
+  const int lsb = (bits >> 20) & 1;
+  const float rn = fminf(__int_as_float((bits + lsb + 0x7FFFF) & ~0xFFFFF), 448.f);
+  const float sub = __fmul_rn(rintf(__fmul_rn(a, 512.f)), 0.001953125f);
+  return a < 0.015625f ? sub : rn;
+}
+
+// fp32 -> e4m3fn byte: RTNE, saturating to +-448, NaN -> 0x7F with the
+// NaN's sign bit (codecs.e4m3_rtne_bytes)
+__device__ __forceinline__ int e4m3_byte(float x) {
+  const int sign = (__float_as_int(x) >> 31) & 1;
+  const bool nan = x != x;
+  const float v = e4m3_round_mag(nan ? 0.f : fminf(fabsf(x), 448.f));
+  const int vb = __float_as_int(v);
+  const int exp32 = (vb >> 23) & 0xFF;
+  int byte = exp32 < 121 ? __float2int_rn(__fmul_rn(v, 512.f))
+                         : ((exp32 - 120) << 3) | ((vb >> 20) & 7);
+  if (v == 0.f) byte = 0;
+  if (nan) byte = 0x7F;
+  return byte | (sign << 7);
+}
+
+// e4m3fn byte -> exact fp32; 0x7F / 0xFF -> NaN (codecs.e4m3_decode_f32)
+__device__ __forceinline__ float e4m3_decode(int b) {
+  const int e = (b >> 3) & 0xF, m = b & 7;
+  float v = e == 0 ? __fmul_rn((float)m, 0.001953125f) : __int_as_float(((e + 120) << 23) | (m << 20));
+  if (e == 15 && m == 7) v = __int_as_float(0x7FC00000);
+  return (b & 0x80) ? -v : v;
+}
+
+// e2m1 code -> exact fp32 value (codecs.e2m1_decode_f32)
+__device__ __forceinline__ float e2m1_value(int code) {
+  const float m2 = (float)e2m1_m2(code);  // 2 * value, exact
+  return __fmul_rn(m2, 0.5f);
+}
+
+// sums and maxima over the 16 lanes of a half warp (xor offsets < 16 stay
+// in the half): each half of a warp holds one NVFP4 group
+__device__ __forceinline__ float half_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_max(float v) {
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  return v;
+}
+
+// output multiplier of an NVFP4 group from its scale byte: abs-max
+// (method 1) gs / SF, QuEST (method 0) 1 / scale; 0 where the decoded
+// scale is 0 (abs-max), not positive (QuEST) or NaN
+// (codecs.nv_absmax_scale_bytes / nv_quest_scale_bytes)
+__device__ __forceinline__ float nv_mul(int byte, int method, float gs) {
+  const float sq = e4m3_decode(byte);
+  if (sq != sq) return 0.f;
+  if (method == 1) return sq != 0.f ? __fdiv_rn(gs, sq) : 0.f;
+  return sq > 0.f ? __fdiv_rn(1.f, sq) : 0.f;
+}
+
+// e4m3 scale byte of the NVFP4 group held by this lane's half warp, one
+// element per lane.  method 0 = QuEST: sqrt(var) * 2.92247856/6 + 1e-8,
+// and var < 0 gives the sign-set NaN of the reference (byte 0xFF, which
+// zeroes the group); method 1 = abs-max: e4m3(gs * (amax * (1/6))).
+__device__ __forceinline__ int nv_group_byte(float v, int method, float gs) {
+  if (method == 1) return e4m3_byte(__fmul_rn(gs, __fmul_rn(half_max(fabsf(v)), kSixth)));
+  const float s1 = half_sum(v);
+  const float s2 = half_sum(__fmul_rn(v, v));
+  const float mean = __fmul_rn(s1, 0.0625f);
+  const float var = __fsub_rn(__fmul_rn(s2, 0.0625f), __fmul_rn(mean, mean));
+  if (!(var >= 0.f)) return 0xFF;
+  return e4m3_byte(__fadd_rn(__fmul_rn(__fsqrt_rn(var), kQuestConst), kScaleEps));
 }
 
 // Rotated element `col` of a 128-wide bf16 tile row held in shared memory:

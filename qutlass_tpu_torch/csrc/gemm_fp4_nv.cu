@@ -1,0 +1,142 @@
+// K7 gemm_fp4_nv: the NVFP4 decode GEMM,
+//   C[m, n] = bf16( float(sum_k dq(a)[m, k] * dq(b)[n, k]) * alpha ),
+// dq = e2m1 value times its 16-group e4m3 scale.
+//
+// Replaces the Pallas kernel qutlass_tpu/kernels/gemm.py:_run_gemm with
+// fmt="nv" (:168), behind matmul_nvf4_bf16_tn and _kmajor (:255/:265):
+// the GEMM of NVFP4 linears with fp4-stored weights.
+//
+// What bounds it on the H100: at decode (M = 4) the weight bytes, 0.56
+// byte per weight element; at prefill the CUDA cores' fp32 rate, since
+// this first version does not use the tensor cores.
+//
+// Exactness, and what the design does about it.  An e4m3 scale is not a
+// power of two, so the fp32 partial sums of a plain fp32 accumulation
+// are not exact: over K = 4096 they would round, and a bf16 result would
+// differ from the fp64 reference at a rate near 1e-3.  Instead, per
+// 16-group, the kernel sums the unscaled e2m1 products in fp32 (values
+// are multiples of 1/4 up to 36, so 16 of them sum exactly), multiplies
+// the group sum by the two scales (12 + 4 + 4 significant bits: exact),
+// and adds that into an fp64 accumulator, which stays exact while the
+// group terms of a row pair span fewer than ~40 binades.  The result,
+// rounded once to fp32 and scaled by alpha, is then bitwise the plain
+// version's (fp64 sum of exact products, rounded once).
+//
+// Tiles: 64x64 outputs, 256 threads of 4x4 outputs each.  Every K step
+// of 32 (two scale groups) decodes a 32x64 slab of each operand into
+// shared memory as fp32 e2m1 values, plus the slab's scales.  Operands
+// and scales are read through strides, so the row-major and K-major
+// layouts share the kernel.  alpha is read from device memory.
+#include "common.cuh"
+
+namespace {
+
+constexpr int BM = 64, BN = 64, BK = 32;
+constexpr int THREADS = 256;
+constexpr int PAD = 65;  // slab row stride: conflict-free stores along k and along rows
+
+// decode the [rows r0.., k k0..] slab of a logical [R, K/2] packed operand
+// (element 2i in the low nibble) into t[k][row] and its two groups'
+// scales s[r * s_r + g * s_g] into ts[g][row]
+__device__ __forceinline__ void decode_tile(float (*t)[PAD], float (*ts)[BM],
+                                            const uint8_t* __restrict__ q, long long q_r,
+                                            long long q_k, const uint8_t* __restrict__ s,
+                                            long long s_r, long long s_g, int r0, int R, int k0,
+                                            int K, int tid) {
+  const bool r_fast = q_r == 1;
+#pragma unroll
+  for (int j = 0; j < BM * BK / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    const int rr = r_fast ? i % BM : i / BK;
+    const int kk = r_fast ? i / BM : i % BK;
+    const int r = r0 + rr, kg = k0 + kk;
+    float v = 0.f;
+    if (r < R && kg < K)
+      v = qt::e2m1_value((q[(long long)r * q_r + (long long)(kg >> 1) * q_k] >> ((kg & 1) * 4)) & 0xF);
+    t[kk][rr] = v;
+  }
+  if (tid < 2 * BM) {
+    const int g = tid / BM, rr = tid % BM, r = r0 + rr, kg = k0 + g * 16;
+    ts[g][rr] = (r < R && kg < K) ? qt::e4m3_decode(s[(long long)r * s_r + (long long)(kg >> 4) * s_g])
+                                  : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+gemm_fp4_nv_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k,
+                   const uint8_t* __restrict__ as, long long as_m, long long as_g,
+                   const uint8_t* __restrict__ b, long long b_n, long long b_k,
+                   const uint8_t* __restrict__ bs, long long bs_n, long long bs_g,
+                   const float* __restrict__ alpha_ptr, __nv_bfloat16* __restrict__ c, int M,
+                   int N, int K) {
+  __shared__ float As[BK][PAD];
+  __shared__ float Bs[BK][PAD];
+  __shared__ float Sa[2][BM];
+  __shared__ float Sb[2][BN];
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  double acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    decode_tile(As, Sa, a, a_m, a_k, as, as_m, as_g, m0, M, k0, K, tid);
+    decode_tile(Bs, Sb, b, b_n, b_k, bs, bs_n, bs_g, n0, N, k0, K, tid);
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      float p[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
+#pragma unroll
+      for (int kk = g * 16; kk < g * 16 + 16; ++kk) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) p[i][j] = fmaf(av[i], bv[j], p[i][j]);  // exact
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float sa = Sa[g][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] += (double)__fmul_rn(__fmul_rn(p[i][j], sa), Sb[g][tx + 16 * j]);  // exact
+      }
+    }
+    __syncthreads();
+  }
+
+  const float alpha = *alpha_ptr;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      if (m < M && n < N)
+        c[(long long)m * N + n] = __float2bfloat16_rn(__fmul_rn(__double2float_rn(acc[i][j]), alpha));
+    }
+}
+
+}  // namespace
+
+extern "C" int qt_gemm_fp4_nv(const void* a, long long a_m, long long a_k, const void* as,
+                              long long as_m, long long as_g, const void* b, long long b_n,
+                              long long b_k, const void* bs, long long bs_n, long long bs_g,
+                              const void* alpha, void* c, int M, int N, int K, void* stream) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_fp4_nv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)a, a_m, a_k, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n, b_k,
+      (const uint8_t*)bs, bs_n, bs_g, (const float*)alpha, (__nv_bfloat16*)c, M, N, K);
+  return (int)cudaGetLastError();
+}

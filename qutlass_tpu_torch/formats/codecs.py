@@ -1,15 +1,19 @@
 """Shared low-precision codecs (device semantics, fp32/int32 arithmetic).
 
-PyTorch counterpart of ``qutlass_tpu.formats.codecs`` (MX parts).  The
-functions are plain tensor code, so they run on any device and serve as
-the arithmetic spec that the CUDA kernels in ``qutlass_tpu_torch/csrc``
-implement bit for bit.
+PyTorch counterpart of ``qutlass_tpu.formats.codecs`` (MX and NV
+parts).  The functions are plain tensor code, so they run on any device
+and serve as the arithmetic spec that the CUDA kernels in
+``qutlass_tpu_torch/csrc`` implement bit for bit.
 
 Numerics contract (reference: IST-DASLab/qutlass):
   * e2m1 RTNE with even-code tie-break, saturating to +-6, NaN -> +0
     (PTX ``cvt.rn.satfinite.e2m1x2.f32``).
   * e8m0 power-of-two floor via fp32 exponent-bit masking
     (``& 0x7f800000``).
+  * e4m3 saturating RTNE by bit arithmetic (``__nv_fp8_e4m3``), NaN ->
+    byte 0x7F with the sign bit of the NaN.  The bit arithmetic, not a
+    ``torch.float8_e4m3fn`` cast, is the spec: it is what the kernels
+    compute, whatever a cast's saturation does on a given build.
   * Powers of two are built from bits, never with ``exp2``/``ldexp``.
 
 Byte values are carried as ``int32`` and converted to ``uint8`` only at
@@ -20,9 +24,13 @@ from __future__ import annotations
 import torch
 
 E2M1_MAX = 6.0
+E4M3_MAX = 448.0
 QUEST_CONST = 2.92247856 / 6.0
 # 2^-127, the value of e8m0 byte 0 (an fp32 subnormal)
 _POW2_M127 = 5.877471754111438e-39
+# the fp32 NaN that sqrt of a negative number gives on the JAX package's
+# CPU and TPU (sign bit set): its e4m3 byte is 0xFF, not 0x7F
+_NEG_NAN_BITS = -0x400000
 
 
 def _f32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -66,6 +74,15 @@ def e2m1_codes_to_m2(codes: torch.Tensor) -> torch.Tensor:
     m = torch.where(mag < 5, mag,
                     torch.where(mag < 7, 2 * mag - 4, torch.full_like(mag, 12)))
     return torch.where(c >= 8, -m, m)
+
+
+def e2m1_decode_f32(codes: torch.Tensor) -> torch.Tensor:
+    """int e2m1 codes (0..15) -> exact fp32 values."""
+    c = codes.to(torch.int32)
+    mag = c & 7
+    e, m = mag >> 1, mag & 1
+    bits = torch.where(e == 0, m * 0x3F000000, ((126 + e) << 23) | (m << 22))
+    return _bits_f32(torch.where(c >= 8, bits | -0x80000000, bits))
 
 
 def e2m1_decode_scaled_bf16(codes: torch.Tensor,
@@ -135,8 +152,66 @@ def e8m0_recip_f32(byte: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# e4m3 (fp8 block scales)
+# ---------------------------------------------------------------------------
+
+def _e4m3_round_mag(a: torch.Tensor) -> torch.Tensor:
+    """|x| (fp32, NaN cleared, clamped to 448) -> exact e4m3-rounded
+    magnitude: RTNE to 3 mantissa bits on the fp32 bits in the normal
+    range, on the fixed 2^-9 grid below 2^-6."""
+    bits = _f32_bits(a)
+    lsb = (bits >> 20) & 1
+    rn = torch.clamp(_bits_f32((bits + lsb + 0x7FFFF) & ~0xFFFFF), max=E4M3_MAX)
+    sub = torch.round(a * 512.0) * (1.0 / 512.0)
+    return torch.where(a < 2.0 ** -6, sub, rn)
+
+
+def e4m3_rtne_value_f32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the exact e4m3fn-rounded value (satfinite), as fp32; NaN
+    stays NaN."""
+    a = torch.where(torch.isnan(x), torch.full_like(x, float("nan")),
+                    _e4m3_round_mag(torch.clamp(x.abs(), max=E4M3_MAX)))
+    return torch.where(torch.signbit(x), -a, a)
+
+
+def e4m3_rtne_bytes(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> e4m3fn byte (int32), RTNE with saturation to +-448; NaN ->
+    0x7F with the NaN's sign bit."""
+    sign = torch.signbit(x).to(torch.int32)
+    isnan = torch.isnan(x)
+    a = torch.where(isnan, torch.zeros_like(x), torch.clamp(x.abs(), max=E4M3_MAX))
+    v = _e4m3_round_mag(a)
+    vbits = _f32_bits(v)
+    exp32 = (vbits >> 23) & 0xFF
+    mant3 = (vbits >> 20) & 7
+    sub_mant = torch.round(v * 512.0).to(torch.int32)
+    byte = torch.where(v == 0.0, torch.zeros_like(exp32),
+                       torch.where(exp32 < 127 - 6, sub_mant,
+                                   ((exp32 - 120) << 3) | mant3))
+    byte = torch.where(isnan, torch.full_like(byte, 0x7F), byte)
+    return byte | (sign << 7)
+
+
+def e4m3_decode_f32(byte: torch.Tensor) -> torch.Tensor:
+    """int e4m3fn byte -> exact fp32.  0x7F / 0xFF decode to NaN."""
+    b = byte.to(torch.int32)
+    e, m = (b >> 3) & 0xF, b & 7
+    norm = _bits_f32(((e + 120) << 23) | (m << 20))
+    v = torch.where(e == 0, m.to(torch.float32) * (2.0 ** -9), norm)
+    v = torch.where((e == 15) & (m == 7), torch.full_like(v, float("nan")), v)
+    return torch.where(b >= 0x80, -v, v)
+
+
+# ---------------------------------------------------------------------------
 # block-scale computation (the quantizer cores)
 # ---------------------------------------------------------------------------
+
+def _f32_root(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded fp32 sqrt of x >= 0: the fp64 root rounded once
+    (as ``__fsqrt_rn`` and XLA give it).  PyTorch's vectorized fp32 sqrt
+    on the CPU is off by an ulp for some inputs, enough to flip a byte."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
 
 def mx_scale_quest(s1: torch.Tensor, s2: torch.Tensor, n: float) -> torch.Tensor:
     """QuEST scale from group moments (pre pow2-floor): population
@@ -144,14 +219,47 @@ def mx_scale_quest(s1: torch.Tensor, s2: torch.Tensor, n: float) -> torch.Tensor
     ``sqrt(var) * (2.92247856/6) + 1e-8``; 1.0 where var < 0."""
     mean = s1 * (1.0 / n)
     var = s2 * (1.0 / n) - mean * mean
-    # fp32 sqrt correctly rounded (as __fsqrt_rn and XLA give it): the
-    # fp64 root rounded once to fp32.  PyTorch's vectorized fp32 sqrt on
-    # the CPU is off by an ulp for some inputs, enough to flip a byte.
-    root = torch.sqrt(torch.clamp(var, min=0.0).to(torch.float64)).to(torch.float32)
-    scale = root * QUEST_CONST + 1e-8
+    scale = _f32_root(torch.clamp(var, min=0.0)) * QUEST_CONST + 1e-8
     return torch.where(var >= 0.0, scale, torch.ones_like(scale))
 
 
 def mx_scale_absmax(amax: torch.Tensor) -> torch.Tensor:
     """Abs-max scale (pre pow2-floor): amax + 1e-8."""
     return amax + 1e-8
+
+
+def nv_scale_quest(s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """NVFP4 QuEST scale of a 16-group from its moments, pre e4m3 cast:
+    ``sqrt(var) * (2.92247856/6) + 1e-8``.  No negative-variance guard:
+    var < 0 gives the NaN that zeroes the group (sign bit set, as the
+    JAX package's sqrt gives it)."""
+    mean = s1 * (1.0 / 16.0)
+    var = s2 * (1.0 / 16.0) - mean * mean
+    scale = _f32_root(torch.clamp(var, min=0.0)) * QUEST_CONST + 1e-8
+    neg_nan = _bits_f32(torch.full_like(var, _NEG_NAN_BITS, dtype=torch.int32))
+    return torch.where(var >= 0.0, scale, neg_nan)
+
+
+def _nv_out_mul(num: torch.Tensor, sq: torch.Tensor, keep: torch.Tensor):
+    """num / sq where ``keep``, else 0; 0 where the scale is NaN."""
+    mul = torch.where(keep, num / sq, torch.zeros_like(sq))
+    return torch.where(torch.isnan(sq), torch.zeros_like(mul), mul)
+
+
+def nv_absmax_scale_bytes(amax: torch.Tensor, global_scale: torch.Tensor):
+    """NVFP4 abs-max (vLLM-compatible) scale byte and output multiplier:
+    ``SF = e4m3(gs * (amax * (1/6)))``, ``mul = gs / SF`` (0 where SF is 0
+    or NaN).  Returns (byte int32, mul fp32)."""
+    gs = torch.as_tensor(global_scale, dtype=torch.float32,
+                         device=amax.device).reshape(())
+    byte = e4m3_rtne_bytes(gs * (amax * (1.0 / 6.0)))
+    sfq = e4m3_decode_f32(byte)
+    return byte, _nv_out_mul(gs.expand_as(sfq), sfq, sfq != 0.0)
+
+
+def nv_quest_scale_bytes(s1: torch.Tensor, s2: torch.Tensor):
+    """NVFP4 QuEST scale byte and output multiplier ``1/scale`` (0 where
+    the decoded scale is not positive, or NaN)."""
+    byte = e4m3_rtne_bytes(nv_scale_quest(s1, s2))
+    sq = e4m3_decode_f32(byte)
+    return byte, _nv_out_mul(torch.ones_like(sq), sq, sq > 0.0)

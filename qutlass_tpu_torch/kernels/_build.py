@@ -1,11 +1,13 @@
 """Build and load the hand-written Hopper kernels.
 
 The CUDA sources in ``qutlass_tpu_torch/csrc`` have a plain C interface.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` into one
-shared library under ``qutlass_tpu_torch/_build/`` (named by a hash of
-the sources and flags, so an edited source rebuilds) and loaded with
-``ctypes``.  Nothing here runs at import time, so the package imports on
-machines without ``nvcc`` or a GPU; a build or load failure raises.
+At first use each is compiled with ``nvcc`` for ``sm_90a`` to an object
+file, all of them at once in parallel processes, and the objects are
+linked into one shared library under ``qutlass_tpu_torch/_build/``
+(named by a hash of the sources and flags, so an edited source
+rebuilds), which is loaded with ``ctypes``.  Nothing here runs at
+import time, so the package imports on machines without ``nvcc`` or a
+GPU; a build or load failure raises.
 """
 from __future__ import annotations
 
@@ -21,11 +23,12 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("quantize_mx.cu", "quantize_mx_int8.cu", "gemm_int8_rank1.cu",
-           "gemm_fp4_mx.cu")
+           "gemm_fp4_mx.cu", "quantize_nv.cu", "quantize_nv_int8.cu",
+           "gemm_fp4_nv.cu")
 # no --use_fast_math: the scale math must round like the fp32 reference;
 # --fmad=false keeps nvcc from contracting a*b+c in it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+              "-Xcompiler", "-fPIC", "--fmad=false")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -36,6 +39,10 @@ _SIGNATURES = {
                            _I, _P],
     "qt_gemm_fp4_mx": [_P, _LL, _LL, _I, _P, _LL, _LL, _P, _LL, _LL, _I, _P,
                        _LL, _LL, _F, _P, _I, _I, _I, _P],
+    "qt_quantize_nv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _P],
+    "qt_quantize_nv_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qt_gemm_fp4_nv": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
+                       _P, _P, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -59,6 +66,18 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise on the first that failed."""
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists;
     return its path."""
@@ -66,15 +85,20 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)       # atomic: a concurrent build sees a whole file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in SOURCES:        # one nvcc per source, all started together
+            obj = str(Path(tmpdir, src.replace(".cu", ".o")))
+            cmd = [nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+            objs.append(obj)
+        _run(procs)
+        lib = str(Path(tmpdir, "lib.so"))
+        cmd = [nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, out)   # atomic: a concurrent build sees a whole file
     return out
 
 

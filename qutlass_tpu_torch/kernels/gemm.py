@@ -1,12 +1,13 @@
-"""Wrappers of the GEMM kernels K3 (``csrc/gemm_int8_rank1.cu``) and K4
-(``csrc/gemm_fp4_mx.cu``).
+"""Wrappers of the GEMM kernels K3 (``csrc/gemm_int8_rank1.cu``), K4
+(``csrc/gemm_fp4_mx.cu``) and K7 (``csrc/gemm_fp4_nv.cu``).
 
 Each wrapper routes by device: tensors on the CPU go to the kernel's
-plain version (``gemm_int8_rank1_plain`` / ``gemm_fp4_mx_plain``, in
-``ops.emulation``), tensors on a CUDA device to the kernel.  Operands
-are passed to the kernels as logical row views with their strides, so
-row-major, K-major and sliced scale buffers need no copy.  A launch adds
-one to ``dispatch.launch_counts``.
+plain version (``*_plain``, in ``ops.emulation``), tensors on a CUDA
+device to the kernel.  Operands are passed to the kernels as logical row
+views with their strides, so row-major, K-major and sliced scale buffers
+need no copy.  A launch adds one to ``dispatch.launch_counts``.  An
+alpha that is a CUDA tensor stays on the card (no host sync): K3 takes
+it folded into ``sa``, K7 reads it from device memory.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from ..ops import emulation as _emu
 from ..ops.emulation import matmul_int8_rank1_plain as gemm_int8_rank1_plain
 from . import _build
 
+_NV_PLAIN = {"tn": _emu.matmul_nvf4_bf16_tn,
+             "kmajor": _emu.matmul_nvf4_bf16_kmajor}
 _FP4_PLAIN = {"tn": _emu.matmul_mxf4_bf16_tn,
               "kmajor": _emu.matmul_mxf4_bf16_kmajor,
               "kmajor_codes": _emu.matmul_mxf4_bf16_kmajor_codes}
@@ -54,6 +57,10 @@ def gemm_int8_rank1(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
         if s.dtype != torch.float32 or tuple(s.shape) != (ln,) or not s.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 [{ln}], got "
                              f"{s.dtype} {tuple(s.shape)}")
+    if isinstance(alpha, torch.Tensor) and alpha.device.type == "cuda":
+        # fp32 sa * alpha here is the product the kernel forms in its
+        # epilogue, and sa * 1.0 is exact, so the result is the same bits
+        sa, alpha = sa * alpha.reshape(()).to(torch.float32), 1.0
     c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     err = _build.library().qt_gemm_int8_rank1(
         a_mk.data_ptr(), a_mk.stride(0), a_mk.stride(1), b_nk.data_ptr(),
@@ -108,4 +115,49 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
         _alpha_float(alpha), c.data_ptr(), m, n, k, _stream(a))
     _build.check(err, "gemm_fp4_mx")
     dispatch.note_launch("gemm_fp4_mx")
+    return c
+
+
+def gemm_fp4_nv_plain(a, b, a_sf, b_sf, alpha, *, layout: str):
+    """Plain version of K7 for ``layout`` in ("tn", "kmajor")."""
+    return _NV_PLAIN[layout](a, b, a_sf, b_sf, alpha)
+
+
+def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
+                b_sf: torch.Tensor, alpha, *, layout: str) -> torch.Tensor:
+    """Kernel K7: C[M, N] = bf16((dq(a) @ dq(b)^T) * alpha), NVFP4
+    operands (e2m1 codes, e4m3 bytes per 16-group).
+
+    ``layout="tn"``: a/b packed u8 [M, K/2] / [N, K/2], scales [M, K/16]
+    / [N, K/16].  ``"kmajor"``: a/b packed [K/2, M] / [K/2, N], scales
+    [K/16, M] / [K/16, N].  ``alpha``: a number or a 1-element tensor.
+    """
+    if layout not in _NV_PLAIN:
+        raise ValueError(f"invalid layout {layout!r}")
+    al = torch.as_tensor(alpha, dtype=torch.float32, device=a.device).reshape(())
+    if not dispatch.on_cuda(a, b, a_sf, b_sf, al):
+        return gemm_fp4_nv_plain(a, b, a_sf, b_sf, al, layout=layout)
+    for name, t in (("a", a), ("b", b), ("a_sf", a_sf), ("b_sf", b_sf)):
+        if t.dtype != torch.uint8 or t.ndim != 2:
+            raise TypeError(f"{name} must be a 2-D uint8 tensor, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    tn = layout == "tn"
+    a_r, b_r = (a, b) if tn else (a.T, b.T)          # logical [rows, K/2]
+    as_r, bs_r = (a_sf, b_sf) if tn else (a_sf.T, b_sf.T)
+    m, n, k = a_r.shape[0], b_r.shape[0], b_r.shape[1] * 2
+    if a_r.shape[1] * 2 != k:
+        raise ValueError(f"operands disagree on K: {tuple(a.shape)} vs "
+                         f"{tuple(b.shape)} ({layout})")
+    if tuple(as_r.shape) != (m, k // 16) or tuple(bs_r.shape) != (n, k // 16):
+        raise ValueError(f"scale shapes {tuple(a_sf.shape)} / {tuple(b_sf.shape)} "
+                         f"do not match M={m}, N={n}, K={k} ({layout})")
+    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    err = _build.library().qt_gemm_fp4_nv(
+        a_r.data_ptr(), a_r.stride(0), a_r.stride(1),
+        as_r.data_ptr(), as_r.stride(0), as_r.stride(1),
+        b_r.data_ptr(), b_r.stride(0), b_r.stride(1),
+        bs_r.data_ptr(), bs_r.stride(0), bs_r.stride(1),
+        al.data_ptr(), c.data_ptr(), m, n, k, _stream(a))
+    _build.check(err, "gemm_fp4_nv")
+    dispatch.note_launch("gemm_fp4_nv")
     return c

@@ -1,11 +1,13 @@
-"""Wrappers of the quantize kernels K1 (``csrc/quantize_mx.cu``) and K2
-(``csrc/quantize_mx_int8.cu``).
+"""Wrappers of the quantize kernels K1 (``csrc/quantize_mx.cu``), K2
+(``csrc/quantize_mx_int8.cu``), K5 (``csrc/quantize_nv.cu``) and K6
+(``csrc/quantize_nv_int8.cu``).
 
 Each wrapper routes by device: tensors on the CPU go to the kernel's
-plain version (``quantize_mx_plain`` / ``quantize_mx_int8_plain``,
-defined in ``ops.emulation``), tensors on a CUDA device to the kernel,
-which launches on the current stream into outputs allocated here.  A
-launch adds one to ``dispatch.launch_counts``.
+plain version (``*_plain``, defined in ``ops.emulation``), tensors on a
+CUDA device to the kernel, which launches on the current stream into
+outputs allocated here.  A launch adds one to
+``dispatch.launch_counts``.  The NV kernels read the global scale from
+device memory, so a scale computed on the card needs no host sync.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from ..ops import dispatch
 from ..ops import validation as _val
 from ..ops.emulation import fused_quantize_mx as quantize_mx_plain
 from ..ops.emulation import fused_quantize_mx_int8 as quantize_mx_int8_plain
+from ..ops.emulation import fused_quantize_nv as quantize_nv_plain
+from ..ops.emulation import fused_quantize_nv_int8 as quantize_nv_int8_plain
 from ..utils import round_up
 from . import _build
 
@@ -22,14 +26,15 @@ _LAYOUTS = {"rowmajor": 0, "kmajor": 1, "kmajor_codes": 2}
 _METHODS = {"quest": 0, "abs_max": 1}
 
 
-def _check(a: torch.Tensor, h: torch.Tensor, rot_size: int, method: str):
+def _check(a: torch.Tensor, h: torch.Tensor, rot_size: int, method: str,
+           group: int = 32):
     """Validate a CUDA call; return (x [rows, K] contiguous, h bf16)."""
     _val.check_bf16("a", a)
     if method not in _METHODS:
         raise ValueError(f"invalid method {method!r}")
     if _val.check_rotation(h, a.shape[-1]) != rot_size:
         raise ValueError(f"rotation is {tuple(h.shape)}, rot_size {rot_size}")
-    _val.check_group_dim("quantize", a.shape[-1], 32)
+    _val.check_group_dim("quantize", a.shape[-1], group)
     if not a.is_contiguous():
         raise ValueError("a must be contiguous")
     return a.reshape(-1, a.shape[-1]), h.to(torch.bfloat16).contiguous()
@@ -96,3 +101,59 @@ def quantize_mx_int8(a: torch.Tensor, h: torch.Tensor, *, rot_size: int,
     _build.check(err, "quantize_mx_int8")
     dispatch.note_launch("quantize_mx_int8")
     return ai, sa, s
+
+
+def quantize_nv(a: torch.Tensor, h: torch.Tensor, global_scale, *,
+                rot_size: int, method: str = "abs_max",
+                layout: str = "rowmajor"):
+    """Kernel K5: rotate + NVFP4 quantize (group 16, e4m3 scales).  Same
+    contract as :func:`quantize_nv_plain` (``ops.emulation.fused_quantize_nv``)."""
+    gs = _val.check_global_scale(global_scale, a.device)
+    if not dispatch.on_cuda(a, h, gs):
+        return quantize_nv_plain(a, h, gs, rot_size=rot_size, method=method,
+                                 layout=layout)
+    if layout not in ("rowmajor", "kmajor"):
+        raise ValueError(f"invalid layout {layout!r}")
+    x, hb = _check(a, h, rot_size, method, group=16)
+    rows, k = x.shape
+    u8 = dict(dtype=torch.uint8, device=a.device)
+    if layout == "rowmajor":
+        q = torch.empty((rows, k // 2), **u8)
+        s = torch.zeros((round_up(rows, 128), round_up(k // 16, 4)), **u8)
+        s_sg, s_sr = 1, s.shape[1]
+    else:
+        q = torch.empty((k // 2, rows), **u8)
+        s = torch.empty((k // 16, rows), **u8)
+        s_sg, s_sr = rows, 1
+    err = _build.library().qt_quantize_nv(
+        x.data_ptr(), hb.data_ptr(), gs.data_ptr(), q.data_ptr(), s.data_ptr(),
+        rows, k, rot_size, _METHODS[method], int(layout == "kmajor"), s_sg, s_sr,
+        _stream(a))
+    _build.check(err, "quantize_nv")
+    dispatch.note_launch("quantize_nv")
+    if layout == "rowmajor":
+        q = q.reshape(*a.shape[:-1], k // 2)
+    return q, s
+
+
+def quantize_nv_int8(a: torch.Tensor, h: torch.Tensor, global_scale, *,
+                     rot_size: int, method: str = "abs_max"):
+    """Kernel K6: rotate + NVFP4 quantize + int8 encode.  Returns (a'
+    int8 [K, rows], sigma f32 [rows], e4m3 bytes u8 [K/16, rows]), the
+    contract of :func:`quantize_nv_int8_plain`."""
+    gs = _val.check_global_scale(global_scale, a.device)
+    if not dispatch.on_cuda(a, h, gs):
+        return quantize_nv_int8_plain(a, h, gs, rot_size=rot_size, method=method)
+    x, hb = _check(a, h, rot_size, method, group=16)
+    rows, k = x.shape
+    ai = torch.empty((k, rows), dtype=torch.int8, device=a.device)
+    sigma = torch.empty((rows,), dtype=torch.float32, device=a.device)
+    s = torch.empty((k // 16, rows), dtype=torch.uint8, device=a.device)
+    vmax = torch.empty((rows,), dtype=torch.float32, device=a.device)  # scratch
+    err = _build.library().qt_quantize_nv_int8(
+        x.data_ptr(), hb.data_ptr(), gs.data_ptr(), ai.data_ptr(),
+        sigma.data_ptr(), s.data_ptr(), vmax.data_ptr(), rows, k, rot_size,
+        _METHODS[method], _stream(a))
+    _build.check(err, "quantize_nv_int8")
+    dispatch.note_launch("quantize_nv_int8")
+    return ai, sigma, s

@@ -1,13 +1,14 @@
-"""Model family and serving harness on the MXFP4 W4A4 path."""
+"""Model family and serving harness on the MXFP4 and NVFP4 W4A4 paths."""
 from .convert import params_from_numpy, tensor_from_numpy
 from .serving import (decode_step, generate, init_cache, prefill,
                       sample_logits)
 from .transformer import (LLAMA31_8B, LLAMA31_70B, QWEN3_8B, QWEN3_14B,
-                          QWEN3_32B, ModelConfig, forward, init_params,
-                          quantize_model_weights, quantize_weight, tiny_config)
+                          QWEN3_32B, ModelConfig, calibrate_nv_gsx, forward,
+                          init_params, quantize_model_weights, quantize_weight,
+                          tiny_config)
 
 __all__ = ["ModelConfig", "QWEN3_8B", "QWEN3_14B", "QWEN3_32B", "LLAMA31_8B",
            "LLAMA31_70B", "tiny_config", "init_params", "quantize_weight",
-           "quantize_model_weights", "forward", "init_cache", "prefill",
-           "decode_step", "sample_logits", "generate", "params_from_numpy",
-           "tensor_from_numpy"]
+           "quantize_model_weights", "calibrate_nv_gsx", "forward", "init_cache",
+           "prefill", "decode_step", "sample_logits", "generate",
+           "params_from_numpy", "tensor_from_numpy"]

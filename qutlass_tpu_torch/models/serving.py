@@ -3,21 +3,25 @@ of ``qutlass_tpu.models.serving``, bf16 cache).
 
 ``generate`` is a host loop with the semantics of the JAX package's
 dispatch loop: prefill, then one decode step per emitted token, every
-projection on the MXFP4 W4A4 path when ``quantized``.  Unlike the JAX
-package, the KV cache is updated IN PLACE (``_block`` writes into the
-cache tensors and returns the same dict), which saves a copy of the
-cache per layer per step; ``prefill`` always builds a fresh cache.
+projection on its stored W4A4 path (MXFP4 or NVFP4, chosen by the
+stored leaves in ``transformer._linear``) when ``quantized``.  Unlike
+the JAX package, the KV cache is updated IN PLACE (``_block`` writes
+into the cache tensors and returns the same dict), which saves a copy of
+the cache per layer per step; ``prefill`` always builds a fresh cache.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import utils
 from .transformer import (ModelConfig, _head_logits, _linear, _mlp, _rms_norm,
                           _rope)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
-    """Per-layer bf16 KV cache: k/v [B, max_len, kv_heads, head_dim]."""
+    """Per-layer bf16 KV cache: k/v [B, max_len, kv_heads, head_dim], on
+    the card unless ``device`` says otherwise."""
+    device = utils.resolve_device(device)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
              "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}

@@ -1,13 +1,16 @@
 """Decoder-only transformer family (Qwen3 / Llama-3.1 geometries) with
-MXFP4 W4A4 quantized linear layers (counterpart of
-``qutlass_tpu.models.transformer``, MX routes).
+MXFP4 or NVFP4 W4A4 quantized linear layers (counterpart of
+``qutlass_tpu.models.transformer``, dense serving routes).
 
 Parameters are a dict mirroring the JAX pytree (HF-style names), so
 weights convert one to one (``models/convert.py``).  Quantized
-projections are the stored dicts of :func:`quantize_weight`; every
-projection then runs the MXFP4 path of ``nn.linear.mx_linear``.  PyTorch
-runs eagerly and does not re-fuse reductions, so the JAX package's
-fusion pins have no counterpart here.
+projections are the stored dicts of :func:`quantize_weight`; each
+projection runs the path its stored leaves name (``nn.linear``:
+``mx_linear``, or ``nv_linear`` for NVFP4 weights, which carry ``gs``).
+PyTorch runs eagerly and does not re-fuse reductions, so the JAX
+package's fusion pins have no counterpart here, nor does its
+``QUTLASS_TPU_NV_GSX=bound`` switch (off by default there): the NV
+activation global scale is the exact rotated amax or a calibrated one.
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..nn.linear import mx_linear, quantize_weight
+from .. import utils
+from ..nn import linear as _lin
+from ..nn.linear import quantize_weight, quantized_linear
 
 # The attention einsums and rotations are fp32 reference math: no TF32.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -74,8 +79,13 @@ def tiny_config(**kw) -> ModelConfig:
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device=None, dtype=torch.bfloat16) -> dict:
     """Random-initialized parameter dict (HF-style naming), drawn from
-    ``generator`` on ``device`` (the generator's device by default)."""
-    device = generator.device if device is None else torch.device(device)
+    ``generator`` on ``device`` (the card unless the caller names
+    another).  The generator must live on that device."""
+    device = utils.resolve_device(device)
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device} cannot draw the "
+                         f"parameters on {device}: pass device= or a "
+                         f"generator on {device}")
 
     def normal(shape, std):
         x = torch.randn(shape, generator=generator, device=device,
@@ -115,10 +125,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 
 def quantize_model_weights(cfg: ModelConfig, params: dict, h: torch.Tensor,
-                           method: str = "quest",
+                           method: str = "quest", fmt: str = "mx",
                            weight_format: str = "int8") -> dict:
-    """Pre-quantize every linear weight to MXFP4 (see
-    :func:`quantize_weight` for ``weight_format``).  The lm head stays
+    """Pre-quantize every linear weight to MXFP4 (``fmt="mx"``) or to the
+    two-level NVFP4 scheme (``fmt="nv"``, a global scale per weight);
+    see :func:`quantize_weight` for ``weight_format``.  The lm head stays
     bf16.  Returns a new dict; the bf16 weights of ``params`` are not
     kept by it."""
     del cfg
@@ -127,10 +138,45 @@ def quantize_model_weights(cfg: ModelConfig, params: dict, h: torch.Tensor,
     for layer in params["layers"]:
         ql = dict(layer)
         for name in PROJECTIONS:
-            ql[name] = quantize_weight(layer[name], h=h, method=method,
+            ql[name] = quantize_weight(layer[name], h=h, method=method, fmt=fmt,
                                        weight_format=weight_format)
         out["layers"].append(ql)
     return out
+
+
+def calibrate_nv_gsx(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                     h: torch.Tensor, *, margin: float = 1.0,
+                     method: str = "quest") -> dict:
+    """Calibrate static activation global scales for the NVFP4 linears.
+
+    Runs one forward over ``tokens`` (a representative batch), records
+    each NV linear's largest rotated activation amax, and stores
+    ``gsx = 448*6 / (margin * amax)`` in its weight dict (leaf
+    ``"gsx"``): from then on the linear skips the per-call amax pass (a
+    second rotation of its activation).  ``margin`` > 1 leaves headroom
+    for activations larger than the sample's; they clip at the e2m1
+    grid edge.  With ``margin == 1`` and the calibration batch itself,
+    the static path equals the exact path bit for bit.  Mutates
+    ``params`` in place and returns it.
+    """
+    ids = {id(layer[name]): layer[name] for layer in params["layers"]
+           for name in PROJECTIONS
+           if isinstance(layer.get(name), dict) and "gs" in layer[name]
+           and "gsx" not in layer[name]}
+    if not ids:
+        return params
+    _lin._NV_CALIB = {}
+    try:
+        forward(cfg, params, tokens, h, quantized=True, method=method)
+        calib = dict(_lin._NV_CALIB)
+    finally:
+        _lin._NV_CALIB = None
+    for wid, amax in calib.items():
+        w = ids.get(wid)
+        if w is not None:
+            w["gsx"] = _lin.nv_global_scale(torch.tensor(
+                margin * amax, dtype=torch.float32, device=w["gs"].device))
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +212,7 @@ def _linear(x: torch.Tensor, w, h: torch.Tensor, method: str,
     """Apply a (possibly quantized) linear to [..., K]."""
     if not quantized:
         return (x.to(torch.float32) @ w.to(torch.float32).T).to(x.dtype)
-    return mx_linear(x, w, h, method)
+    return quantized_linear(x, w, h, method)
 
 
 def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -203,7 +249,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     """Prefill forward: tokens [B, T] int -> logits [B, T, vocab] fp32.
 
     ``quantized=True`` expects params from :func:`quantize_model_weights`
-    and runs every projection through the MXFP4 W4A4 path.
+    and runs every projection through its stored W4A4 path.
     """
     b, t = tokens.shape
     dev = tokens.device
@@ -237,4 +283,4 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 __all__ = ["ModelConfig", "QWEN3_8B", "QWEN3_14B", "QWEN3_32B", "LLAMA31_8B",
            "LLAMA31_70B", "tiny_config", "init_params", "quantize_weight",
-           "quantize_model_weights", "forward"]
+           "quantize_model_weights", "calibrate_nv_gsx", "forward"]

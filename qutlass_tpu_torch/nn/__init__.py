@@ -1,4 +1,6 @@
 """Quantized layers."""
-from .linear import QuantizedLinear, mx_linear, quantize_weight
+from .linear import (QuantizedLinear, mx_linear, nv_linear, quantize_weight,
+                     quantized_linear)
 
-__all__ = ["QuantizedLinear", "mx_linear", "quantize_weight"]
+__all__ = ["QuantizedLinear", "mx_linear", "nv_linear", "quantize_weight",
+           "quantized_linear"]

@@ -1,5 +1,5 @@
-"""The public MX ops mapped onto the hand-written kernels (counterpart of
-``qutlass_tpu.ops.pallas_ops``).
+"""The public MX and NV ops mapped onto the hand-written kernels
+(counterpart of ``qutlass_tpu.ops.pallas_ops``).
 
 Every function here calls a kernel wrapper, which launches the Hopper
 kernel for CUDA tensors and runs its plain version for CPU tensors; no
@@ -7,8 +7,9 @@ shape is routed around a kernel.
 """
 from __future__ import annotations
 
-from ..kernels.gemm import gemm_fp4_mx
-from ..kernels.quantize import quantize_mx, quantize_mx_int8
+from ..kernels.gemm import gemm_fp4_mx, gemm_fp4_nv
+from ..kernels.quantize import (quantize_mx, quantize_mx_int8, quantize_nv,
+                                quantize_nv_int8)
 
 
 def fused_quantize_mx(a, h, *, rot_size: int, method: str = "quest",
@@ -32,3 +33,23 @@ def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
 
 def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
     return gemm_fp4_mx(at, bt, a_sft, b_sft, alpha, layout="kmajor_codes")
+
+
+def fused_quantize_nv(a, h, global_scale, *, rot_size: int,
+                      method: str = "abs_max", layout: str = "rowmajor"):
+    return quantize_nv(a, h, global_scale, rot_size=rot_size, method=method,
+                       layout=layout)
+
+
+def fused_quantize_nv_int8(a, h, global_scale, *, rot_size: int,
+                           method: str = "abs_max"):
+    return quantize_nv_int8(a.reshape(-1, a.shape[-1]), h, global_scale,
+                            rot_size=rot_size, method=method)
+
+
+def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+    return gemm_fp4_nv(a, b, a_sf, b_sf, alpha, layout="tn")
+
+
+def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+    return gemm_fp4_nv(at, bt, a_sft, b_sft, alpha, layout="kmajor")

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the MX ops (counterpart of
-``qutlass_tpu.ops.emulation``, MX parts).
+"""Plain PyTorch versions of the MX and NV ops (counterpart of
+``qutlass_tpu.ops.emulation``, serving parts).
 
 Each function here is the plain version of one hand-written kernel in
 ``qutlass_tpu_torch/csrc``: the kernel wrappers call it for tensors on
@@ -63,7 +63,7 @@ def as_alpha(alpha, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# fused quantize (plain version of kernel K1)
+# fused quantize (plain versions of kernels K1, K2, K5, K6)
 # ---------------------------------------------------------------------------
 
 def fused_quantize_mx(a: torch.Tensor, h: torch.Tensor, *, rot_size: int,
@@ -118,6 +118,45 @@ def fused_quantize_mx_int8(a: torch.Tensor, h: torch.Tensor, *,
     return ai, sa, cs
 
 
+def fused_quantize_nv(a: torch.Tensor, h: torch.Tensor, global_scale, *,
+                      rot_size: int, method: str = "abs_max",
+                      layout: str = "rowmajor"):
+    """Plain version of kernel K5: rotate + quantize to NVFP4 (group 16,
+    e4m3 scale bytes; abs-max scales through ``global_scale``).
+
+    ``layout="rowmajor"``: (packed u8 [..., K/2], scale bytes u8 padded
+    [round_up(rows, 128), round_up(K/16, 4)]).  ``layout="kmajor"``:
+    (packed u8 [K/2, rows], scale bytes u8 [K/16, rows]).
+    """
+    k = a.shape[-1]
+    rows = a.numel() // k
+    xh = rotate(a, h, rot_size)
+    g = xh.reshape(-1, k // 16, 16)
+    if method == "abs_max":
+        byte, mul = C.nv_absmax_scale_bytes(g.abs().amax(-1),
+                                            as_alpha(global_scale, a.device))
+    else:
+        byte, mul = C.nv_quest_scale_bytes(g.sum(-1), (g * g).sum(-1))
+    codes = C.e2m1_rtne_codes((g * mul[..., None]).reshape(xh.shape))
+    sbytes = byte.reshape(rows, k // 16).to(torch.uint8)
+    if layout == "kmajor":
+        return (pack_codes(codes.reshape(rows, k)).T.contiguous(),
+                sbytes.T.contiguous())
+    return pack_codes(codes), padded_scales(sbytes, rows, k // 16)
+
+
+def fused_quantize_nv_int8(a: torch.Tensor, h: torch.Tensor, global_scale, *,
+                           rot_size: int, method: str = "abs_max"):
+    """Plain version of kernel K6: the kmajor NV quantize composed with
+    ``int8path.encode_nv_int8``.  Returns (a' int8 [K, rows], sigma f32
+    [rows], e4m3 scale bytes u8 [K/16, rows])."""
+    from . import int8path as I8
+    qk, sk = fused_quantize_nv(a, h, global_scale, rot_size=rot_size,
+                               method=method, layout="kmajor")
+    ai, sigma = I8.encode_nv_int8(qk, sk)
+    return ai, sigma, sk
+
+
 # ---------------------------------------------------------------------------
 # block-scaled GEMM (plain version of kernel K4)
 # ---------------------------------------------------------------------------
@@ -162,6 +201,45 @@ def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
     """Unpacked-activation-codes variant: at codes u8 [K, M]."""
     return matmul_mxf4_codes(at.T, unpack_codes(bt.T), a_sft.T, b_sft.T,
                              alpha)
+
+
+# ---------------------------------------------------------------------------
+# NVFP4 GEMM (plain version of kernel K7)
+# ---------------------------------------------------------------------------
+
+def dequant_nvfp4(codes: torch.Tensor, scale_bytes: torch.Tensor) -> torch.Tensor:
+    """e2m1 codes [R, K] + e4m3 bytes [R, K/16] -> exact fp32 [R, K]
+    (a 2-bit times a 4-bit significand; a NaN byte gives NaN)."""
+    r, k = codes.shape
+    v = C.e2m1_decode_f32(codes).reshape(r, k // 16, 16)
+    return (v * C.e4m3_decode_f32(scale_bytes)[..., None]).reshape(r, k)
+
+
+def matmul_nvf4_codes(a_codes, b_codes, a_sf, b_sf, alpha) -> torch.Tensor:
+    """out[M, N] = bf16((dq(a) @ dq(b)^T) * alpha) from codes [M, K] /
+    [N, K] and e4m3 bytes [M, K/16] / [N, K/16].
+
+    The products are exact in fp32 and the sum is taken in fp64, exact
+    whenever the products of a row pair span fewer than ~40 binades;
+    it is rounded once to fp32, then scaled by alpha in fp32.
+    """
+    av = dequant_nvfp4(a_codes, a_sf).to(torch.float64)
+    bv = dequant_nvfp4(b_codes, b_sf).to(torch.float64)
+    acc = (av @ bv.T).to(torch.float32)
+    return (acc * as_alpha(alpha, acc.device)).to(torch.bfloat16)
+
+
+def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+    """NVFP4 GEMM: a/b packed u8 [M, K/2] / [N, K/2], e4m3 bytes
+    [M, K/16] / [N, K/16] (row-major)."""
+    return matmul_nvf4_codes(unpack_codes(a), unpack_codes(b), a_sf, b_sf,
+                             alpha)
+
+
+def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+    """K-major variant: at/bt packed u8 [K/2, M] / [K/2, N], e4m3 bytes
+    [K/16, M] / [K/16, N]."""
+    return matmul_nvf4_bf16_tn(at.T, bt.T, a_sft.T, b_sft.T, alpha)
 
 
 # ---------------------------------------------------------------------------

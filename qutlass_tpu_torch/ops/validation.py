@@ -32,6 +32,16 @@ def check_group_dim(name: str, k: int, gs: int) -> None:
         raise ValueError(f"{name}: K={k} must be >= group size {gs}")
 
 
+def check_global_scale(global_scale, device) -> torch.Tensor:
+    """An NVFP4 global scale (a number, a 0-dim or a 1-element tensor) ->
+    0-dim fp32 tensor on ``device``."""
+    gs = torch.as_tensor(global_scale, dtype=torch.float32, device=device)
+    if gs.numel() != 1:
+        raise ValueError(f"global_scale must hold one value, got shape "
+                         f"{tuple(gs.shape)}")
+    return gs.reshape(())
+
+
 def check_matmul_tn(a: torch.Tensor, b: torch.Tensor, gs: int):
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"operands must be 2-D, got {tuple(a.shape)} / "

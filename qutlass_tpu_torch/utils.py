@@ -44,16 +44,30 @@ def pad_to_block(x: torch.Tensor, dims, blocksize: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
+def default_device() -> torch.device:
+    """The device of the port's entry points when the caller names none:
+    the CUDA card.  There is no fallback: without a card such a call
+    fails, and a caller who wants the CPU asks for it."""
+    return torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """``device``, or :func:`default_device` when it is None."""
+    return default_device() if device is None else torch.device(device)
+
+
 def hadamard_matrix(n: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
-    """Normalized Sylvester-Hadamard rotation ``H_n / sqrt(n)``."""
+    """Normalized Sylvester-Hadamard rotation ``H_n / sqrt(n)`` (on the
+    card unless ``device`` says otherwise)."""
     if n < 1 or n & (n - 1):
         raise ValueError(f"Hadamard size must be a power of 2, got {n}")
     h = np.array([[1.0]])
     while h.shape[0] < n:
         h = np.block([[h, h], [h, -h]])
-    return torch.tensor(h * n ** -0.5, dtype=dtype, device=device)
+    return torch.tensor(h * n ** -0.5, dtype=dtype, device=resolve_device(device))
 
 
 def identity_matrix(n: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
-    """Identity "rotation" (quantize without rotating)."""
-    return torch.eye(n, dtype=dtype, device=device)
+    """Identity "rotation" (quantize without rotating), on the card unless
+    ``device`` says otherwise."""
+    return torch.eye(n, dtype=dtype, device=resolve_device(device))

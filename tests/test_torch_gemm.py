@@ -151,9 +151,9 @@ def test_layout_helpers_match_jax():
     np.testing.assert_array_equal(qt.from_blocked(qt.to_blocked(torch.from_numpy(sf)),
                                                   256, 32).numpy(), sf)
     for n in (16, 128):
-        np.testing.assert_array_equal(to_np(qt.hadamard_matrix(n)).view(np.uint16),
+        np.testing.assert_array_equal(to_np(qt.hadamard_matrix(n, device="cpu")).view(np.uint16),
                                       np.asarray(q.hadamard_matrix(n)).view(np.uint16))
-        np.testing.assert_array_equal(to_np(qt.identity_matrix(n)).view(np.uint16),
+        np.testing.assert_array_equal(to_np(qt.identity_matrix(n, device="cpu")).view(np.uint16),
                                       np.asarray(q.identity_matrix(n)).view(np.uint16))
     with pytest.raises(ValueError):
-        qt.hadamard_matrix(24)
+        qt.hadamard_matrix(24, device="cpu")

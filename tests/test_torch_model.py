@@ -33,8 +33,8 @@ def setup():
     jq = j_quantize(jcfg, jparams, jnp.asarray(h))
     to_np_tree = lambda t: jax.tree.map(np.asarray, t)
     return dict(jcfg=jcfg, cfg=M.tiny_config(), jparams=jparams, jq=jq, h=h,
-                params=M.params_from_numpy(to_np_tree(jparams)),
-                qparams=M.params_from_numpy(to_np_tree(jq)))
+                params=M.params_from_numpy(to_np_tree(jparams), device="cpu"),
+                qparams=M.params_from_numpy(to_np_tree(jq), device="cpu"))
 
 
 def _tokens(seed, b, t, vocab=512):
@@ -227,8 +227,8 @@ def test_quantized_linear_module(setup):
 
 def test_init_params_seeded(setup):
     cfg = setup["cfg"]
-    a = M.init_params(cfg, torch.Generator().manual_seed(7))
-    b = M.init_params(cfg, torch.Generator().manual_seed(7))
+    a = M.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
+    b = M.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
     assert torch.equal(a["layers"][1]["down_proj"], b["layers"][1]["down_proj"])
     assert a["embed"].dtype == torch.bfloat16
     assert tuple(a["lm_head"].shape) == (cfg.vocab_size, cfg.hidden_size)

@@ -102,14 +102,15 @@ def test_cpu_tensors_take_the_plain_version():
                                  "layout", "mask_absmax"])
 def test_validation_errors(bad):
     x = torch.zeros((4, 256), dtype=torch.bfloat16)
-    h = qt.hadamard_matrix(32)
+    h = qt.hadamard_matrix(32, device="cpu")
     kw = {}
     if bad == "dtype":
         x = x.float()
     elif bad == "rot_size":
-        h = qt.hadamard_matrix(8)
+        h = qt.hadamard_matrix(8, device="cpu")
     elif bad == "k_div":
-        x, h = torch.zeros((4, 96), dtype=torch.bfloat16), qt.hadamard_matrix(64)
+        x, h = (torch.zeros((4, 96), dtype=torch.bfloat16),
+                qt.hadamard_matrix(64, device="cpu"))
     elif bad == "method":
         kw = {"method": "absmax"}
     elif bad == "layout":

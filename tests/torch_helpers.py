@@ -7,8 +7,9 @@ import torch
 from qutlass_tpu_torch.models.convert import tensor_from_numpy
 
 
-def to_torch(a, device=None) -> torch.Tensor:
-    """numpy / JAX array -> tensor, bit-exact (bf16 included)."""
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """numpy / JAX array -> tensor on ``device`` (the CPU unless named),
+    bit-exact (bf16 included)."""
     return tensor_from_numpy(np.array(a), device)
 
 

@@ -4,11 +4,14 @@
 Phases, in order; any failure exits non-zero before the result lines:
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions
-  1. build the seven Hopper kernels from ``qutlass_tpu_torch/csrc``
+  1. build the eleven Hopper kernels from ``qutlass_tpu_torch/csrc``
   2. hold each kernel against its plain PyTorch version at the main
      paths' shapes and time both (CUDA events after warm-up), beside
      the card's bound for the same work and, where one PyTorch call
-     computes the same function, that call's time
+     computes the same function, that call's time; the QAT kernels
+     (K8-K11, K3 in the int8 backward's orders, and the training
+     forward's K1 with the clip mask and K3) at the training shapes of
+     phase 6
   3. the ``gpu``-marked tests, ``tests/test_torch_gpu.py``
   4. MXFP4 serving: four ragged requests at Qwen3-8B width (seeded
      random weights, quantized on the card), 32 greedy tokens with the
@@ -18,21 +21,29 @@ Phases, in order; any failure exits non-zero before the result lines:
   5. NVFP4 serving, the same requests: int8-stored weights with the
      exact per-call activation scale, then with calibrated static
      scales, each checked against a replay, then fp4-stored weights
+  6. Quartet QAT training at Qwen3-8B MLP width: the QAT example's MLP
+     (4096 -> 12288 -> 4096, ``QuartetLinear``) on 4096-token batches,
+     10 Adam steps in each grad mode with falling loss, gradient
+     cosines against the exact STE, and the reference's byte-level
+     MXFP8 backward flow (K9, K10, K11) held against the mxfp8 mode
 
-Phases 4 and 5 each reset the kernels' launch counters just before they
-drive their path and read them just after.  Then one JSON line of
+Phases 4, 5 and 6 each reset the kernels' launch counters just before
+they drive their path and read them just after.  Then one JSON line of
 per-kernel results and, last, the result line.
 
-Usage: python3 chip_smoke.py [--layers N] [--profile]
-(``--layers`` cuts depth only; the default is the model's 36 layers.
-``--profile`` adds, for each served configuration, the device time by
-kernel over three decode steps and one prefill, from ``torch.profiler``.)
+Usage: python3 chip_smoke.py [--layers N] [--profile] [--qat-lr LR]
+(``--layers`` cuts the serving depth only; the default is the model's 36
+layers.  ``--qat-lr`` sets phase 6's Adam learning rate.  ``--profile``
+adds, for each served configuration, the device time by kernel over
+three decode steps and one prefill, and for each grad mode of phase 6
+that of one training step, from ``torch.profiler``.)
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -45,25 +56,33 @@ TIMED = (512, 4096, 12288)          # (M, K, N) whose times go to the JSON line
 CODE_BUDGET = 1e-4
 STEPS = 32                          # greedy tokens per request
 LENS = [128, 96, 64, 17]            # the ragged requests' prompt lengths
-KERNELS = {
+KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replaces)
     "quantize_mx": ("qutlass_tpu_torch/csrc/quantize_mx.cu",
-                    "qutlass_tpu/kernels/quantize.py:158"),
+                    "qutlass_tpu/kernels/quantize.py:203"),
     "quantize_mx_int8": ("qutlass_tpu_torch/csrc/quantize_mx_int8.cu",
-                         "qutlass_tpu/kernels/quantize.py:625"),
+                         "qutlass_tpu/kernels/quantize.py:648"),
     "gemm_int8_rank1": ("qutlass_tpu_torch/csrc/gemm_int8_rank1.cu",
                         "qutlass_tpu/ops/int8path.py:148"),
     "gemm_fp4_mx": ("qutlass_tpu_torch/csrc/gemm_fp4_mx.cu",
-                    "qutlass_tpu/kernels/gemm.py:168"),
+                    "qutlass_tpu/kernels/gemm.py:193"),
     "quantize_nv": ("qutlass_tpu_torch/csrc/quantize_nv.cu",
-                    "qutlass_tpu/kernels/quantize.py:225"),
+                    "qutlass_tpu/kernels/quantize.py:248"),
     "quantize_nv_int8": ("qutlass_tpu_torch/csrc/quantize_nv_int8.cu",
-                         "qutlass_tpu/kernels/quantize.py:694"),
+                         "qutlass_tpu/kernels/quantize.py:719"),
     "gemm_fp4_nv": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
-                    "qutlass_tpu/kernels/gemm.py:168"),
+                    "qutlass_tpu/kernels/gemm.py:193"),
+    "square_double_scaled": ("qutlass_tpu_torch/csrc/square_double.cu",
+                             "qutlass_tpu/kernels/backward.py:324"),
+    "square_double_mxfp8": ("qutlass_tpu_torch/csrc/square_double.cu",
+                            "qutlass_tpu/kernels/backward.py:254"),
+    "mxfp4_transpose_mxfp8": ("qutlass_tpu_torch/csrc/transpose_mxfp8.cu",
+                              "qutlass_tpu/kernels/backward.py:495"),
+    "gemm_fp8_mx": ("qutlass_tpu_torch/csrc/gemm_fp8_mx.cu",
+                    "qutlass_tpu/kernels/gemm.py:193"),
 }
-# the H100 SXM's published peaks: HBM3 rate, dense bf16 and int8 tensor cores
+# the H100 SXM's published peaks: HBM3 rate, dense bf16, fp8 and int8 tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12}
 ROT = 32
 
 
@@ -376,6 +395,177 @@ def compare_nv_kernels(torch, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, QAT: K8-K11 and K3 in the int8 backward's orders
+# ---------------------------------------------------------------------------
+
+# Qwen3-8B's hidden and intermediate widths, and benchmarks/bench_qat.py's
+# token count; the example's lr (3e-3 at fan-in 256) overshoots at fan-in
+# 4096 and 12288 (Adam's first steps move each weight by ~lr, a fifth of
+# its std): with ``--qat-lr 3e-3`` the second step's loss is ~13x the
+# first's on an H100 and the tenth is above the first, so the lr is
+# scaled down with the width
+QAT_D, QAT_H, QAT_TOKENS = 4096, 12288, 4096
+QAT_STEPS, QAT_LR = 10, 3e-4
+QAT_PATH = ("quantize_mx", "gemm_int8_rank1", "square_double_scaled", "square_double_mxfp8",
+            "mxfp4_transpose_mxfp8", "gemm_fp8_mx")
+
+
+def _bits_or_nan_equal(torch, got, want) -> bool:
+    """bf16 tensors equal bit for bit, NaN where the other is NaN (a NaN's
+    bf16 bits differ between PyTorch's CPU and CUDA casts)."""
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    return bool(torch.equal(gn, wn)) and bool(
+        torch.equal(got.view(torch.int16)[~gn], want.view(torch.int16)[~wn]))
+
+
+def compare_qat_kernels(torch, results: dict) -> None:
+    """K8-K11 at the training shapes of phase 6 (kernel times into the
+    JSON line at layer 1's: dY [4096, 12288], W [12288, 4096], the dgrad
+    GEMM), K3 in the int8 backward's two orders, and the training
+    forward's K1 (with the clip mask) and K3 (K-major x K-major) at the
+    sizes phase 6 gives them."""
+    import qutlass_tpu_torch as qt
+    from qutlass_tpu_torch.kernels import backward as B
+    from qutlass_tpu_torch.kernels import gemm as G
+    from qutlass_tpu_torch.kernels import quantize as Q
+    from qutlass_tpu_torch.ops import emulation as E
+    from qutlass_tpu_torch.ops import int8path as I8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    h = qt.hadamard_matrix(ROT, device=dev)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def record(name, shape, err, ms, plain_ms, bnd, main, extra="", lib=None):
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if main:
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib)
+        print(f"phase 2 {name} {shape} max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd[0]:.6f} ({bnd[1]}){extra}")
+
+    # K8/K9 on the output gradients of the two layers
+    tiles = {}
+    for m, n in ((QAT_TOKENS, QAT_H), (QAT_TOKENS, QAT_D)):
+        dy = randn(m, n, scale=1e-3)
+        f, e = B.square_double_mxfp8(dy)
+        fw, ew = B.square_double_mxfp8_plain(dy)
+        require(torch.equal(e, ew) and torch.equal(f, fw), f"K9 differs from its plain version at {(m, n)}")
+        s, sw = B.square_double_scaled(dy), B.square_double_scaled_plain(dy)
+        require(_bits_or_nan_equal(torch, s, sw), f"K8 differs from its plain version at {(m, n)}")
+        err = (s.float() - sw.float()).nan_to_num(0.0).abs().max().item()
+        main = n == QAT_H
+        record("square_double_mxfp8", (m, n), 0.0, timed_ms(torch, lambda: B.square_double_mxfp8(dy)),
+               timed_ms(torch, lambda: B.square_double_mxfp8_plain(dy)),
+               bound(2 * m * n + m * n + m * n // 1024, 0, "bf16"), main, " bitwise")
+        record("square_double_scaled", (m, n), err, timed_ms(torch, lambda: B.square_double_scaled(dy)),
+               timed_ms(torch, lambda: B.square_double_scaled_plain(dy)),
+               bound(4 * m * n, 0, "bf16"), main, " bitwise")
+        tiles[n] = (f, e)
+
+    # K10 on both weights and on the activation, quantized row-major by K1
+    fp8s = {}
+    for rows, cols, tag in ((QAT_H, QAT_D, "W1"), (QAT_D, QAT_H, "W2"), (QAT_TOKENS, QAT_D, "X")):
+        src = randn(rows, cols, scale=1.0 if tag == "X" else cols ** -0.5)
+        xq, xs = Q.quantize_mx(src, h, rot_size=ROT)
+        sc = xs[:rows, :cols // 32]
+        f, e = B.mxfp4_transpose_mxfp8(xq, sc)
+        fw, ew = B.mxfp4_transpose_mxfp8_plain(xq, sc)
+        require(torch.equal(e, ew) and torch.equal(f, fw), f"K10 differs from its plain version on {tag}")
+        record("mxfp4_transpose_mxfp8", (tag, rows, cols), 0.0,
+               timed_ms(torch, lambda: B.mxfp4_transpose_mxfp8(xq, sc)),
+               timed_ms(torch, lambda: B.mxfp4_transpose_mxfp8_plain(xq, sc)),
+               bound(rows * cols // 2 + rows * cols // 32 + rows * cols + rows * cols // 32, 0,
+                     "bf16"), tag == "W1", " bitwise")
+        fp8s[tag] = (f, e)
+
+    # K11: the dgrad GEMM (tn) and the wgrad GEMM (nn) of the byte-level flow
+    def check_fp8(layout, a, b, asf, bsf, main):
+        a_mk = a if layout == "tn" else a.T
+        (m, k), n = a_mk.shape, b.shape[0]
+        y = G.gemm_fp8_mx(a, b, asf, bsf, 1.0, layout=layout)
+        want = G.gemm_fp8_mx_plain(a, b, asf, bsf, 1.0, layout=layout)   # bf16(fp64 dequant matmul)
+        rate, ulps = _ulp_diff(torch, y, want)
+        require(rate <= 1e-3 and ulps <= 1, f"K11 {layout} vs plain: mismatch {rate}, {ulps} ulp")
+        d = (y.float() - want.float()).abs()
+        over = (d > 1e-1 + 1e-1 * want.float().abs()).float().mean().item()
+        require(over == 0.0, f"K11 {layout} outside the reference's 1e-1 budget at a rate {over}")
+        av, bv = E.dequant_fp8(a_mk, asf), E.dequant_fp8(b, bsf)
+        bf16 = timed_ms(torch, lambda: av @ bv.T)
+        record("gemm_fp8_mx", (layout, m, k, n), d.max().item(),
+               timed_ms(torch, lambda: G.gemm_fp8_mx(a, b, asf, bsf, 1.0, layout=layout), 5),
+               timed_ms(torch, lambda: G.gemm_fp8_mx_plain(a, b, asf, bsf, 1.0, layout=layout), 5),
+               gemm_bound(m, n, k, m * k + m * k // 32, n * k + n * k // 32, "fp8"), main,
+               f" mismatch={rate} max_ulp={ulps} outside_1e-1_budget={over} "
+               f"torch_bf16_matmul_ms={bf16:.4f}")
+
+    f1, e1 = tiles[QAT_H]
+    w8, w8e = fp8s["W1"]
+    check_fp8("tn", f1, w8, E.tile_scales(e1)[0], w8e, True)
+    f2, e2 = tiles[QAT_D]
+    x8, x8e = fp8s["X"]
+    check_fp8("nn", f2, x8, E.tile_scales(e2)[1], x8e, False)
+
+    # K3 in the int8 backward's orders: sb = 1, alpha = 1, bitwise
+    ones = torch.ones(QAT_D, device=dev)
+    for tag, a, b, sa in (
+            ("dgrad", torch.randint(-127, 128, (QAT_TOKENS, QAT_H), generator=gen, device=dev,
+                                    dtype=torch.int8),
+             torch.randint(-96, 97, (QAT_D, QAT_H), generator=gen, device=dev, dtype=torch.int8),
+             torch.rand(QAT_TOKENS, generator=gen, device=dev)),
+            ("wgrad", torch.randint(-127, 128, (QAT_H, QAT_TOKENS), generator=gen, device=dev,
+                                    dtype=torch.int8),
+             torch.randint(-96, 97, (QAT_D, QAT_TOKENS), generator=gen, device=dev, dtype=torch.int8),
+             torch.rand(QAT_H, generator=gen, device=dev))):
+        y = G.gemm_int8_rank1(a, b, sa, ones, 1.0, a_kmajor=False, b_kmajor=False)
+        require(torch.equal(y, G.gemm_int8_rank1_plain(a, b, sa, ones, 1.0)),
+                f"K3 ({tag} order of the int8 backward) differs from its plain version")
+        ms = timed_ms(torch, lambda: G.gemm_int8_rank1(a, b, sa, ones, 1.0, a_kmajor=False,
+                                                       b_kmajor=False))
+        plain = timed_ms(torch, lambda: G.gemm_int8_rank1_plain(a, b, sa, ones, 1.0), 5)
+        m, k = a.shape
+        bnd = gemm_bound(m, QAT_D, k, m * k + 4 * m, QAT_D * k + 4 * QAT_D, "int8")
+        print(f"phase 2 gemm_int8_rank1 int8 backward {tag} M,K,N={(m, k, QAT_D)} bitwise "
+              f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd[0]:.6f} ({bnd[1]})")
+
+    # the training forward's kernels at phase 6's sizes (quartet_forward):
+    # K1 K-major on the activation with the clip mask and on the weight,
+    # then K3 in the K-major x K-major order on their plane-major int8
+    # encodes; all bitwise against the plain versions
+    for m, k, n in ((QAT_TOKENS, QAT_D, QAT_H), (QAT_TOKENS, QAT_H, QAT_D)):
+        x, w = randn(m, k), randn(n, k, scale=k ** -0.5)
+        got = Q.quantize_mx(x, h, rot_size=ROT, return_mask=True, layout="kmajor")
+        want = Q.quantize_mx_plain(x, h, rot_size=ROT, return_mask=True, layout="kmajor")
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K1 (K-major, clip mask) differs from its plain version on x {(m, k)}: "
+                f"code, scale, mask bytes differing "
+                f"{[int((a != b).sum()) for a, b in zip(got, want)]}")
+        wq = Q.quantize_mx(w, h, rot_size=ROT, layout="kmajor")
+        require(all(torch.equal(a, b) for a, b in
+                    zip(wq, Q.quantize_mx_plain(w, h, rot_size=ROT, layout="kmajor"))),
+                f"K1 (K-major) differs from its plain version on w {(n, k)}")
+        ms = timed_ms(torch, lambda: Q.quantize_mx(x, h, rot_size=ROT, return_mask=True,
+                                                   layout="kmajor"))
+        plain = timed_ms(torch, lambda: Q.quantize_mx_plain(x, h, rot_size=ROT, return_mask=True,
+                                                           layout="kmajor"), 5)
+        bnd = quantize_bound(m, k, 0.5 + 1 / 8, 32)
+        print(f"phase 2 quantize_mx training forward x {(m, k)} kmajor with mask: codes, scales "
+              f"and mask bitwise ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd[0]:.6f} "
+              f"({bnd[1]}); w {(n, k)} bitwise")
+        (xi, sx, _), (wi, sw, _) = I8.encode_int8_planes(*got[:2]), I8.encode_int8_planes(*wq)
+        y = I8.matmul_mxf4_bf16_int8_kk(xi, wi, sx, sw, 1.0)
+        require(torch.equal(y, G.gemm_int8_rank1_plain(xi.T, wi.T, sx, sw, 1.0)),
+                f"K3 kk differs from its plain version at the training forward {(m, k, n)}")
+        ms = timed_ms(torch, lambda: I8.matmul_mxf4_bf16_int8_kk(xi, wi, sx, sw, 1.0))
+        plain = timed_ms(torch, lambda: G.gemm_int8_rank1_plain(xi.T, wi.T, sx, sw, 1.0), 5)
+        bnd = gemm_bound(m, n, k, m * k + 4 * m, n * k + 4 * n, "int8")
+        print(f"phase 2 gemm_int8_rank1 kk training forward M,K,N={(m, k, n)} bitwise "
+              f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd[0]:.6f} ({bnd[1]})")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve at Qwen3-8B width
 # ---------------------------------------------------------------------------
 
@@ -432,25 +622,29 @@ def run_and_replay(torch, M, cfg, params, prompt, h, lengths, max_len, steps, ta
     return logits, toks, prefill_ms, ms_per_token, generate_ms
 
 
+def profile_table(prof, n: int, tag: str, what: str, wall_ms=None) -> None:
+    """Print a torch.profiler run's device time by kernel per repetition
+    (``n`` repetitions), the device's busy time, and its idle share
+    against ``wall_ms``, the unprofiled host-clock time of one."""
+    from torch.autograd import DeviceType
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    idle = "" if wall_ms is None else f", {100 * (1 - busy / wall_ms):.1f}% idle against " \
+                                      f"{wall_ms:.2f} ms unprofiled"
+    print(f"profile {tag} {what}: device busy {busy:.3f} ms{idle}")
+    for name, ms, cnt in rows[:12]:
+        print(f"profile {tag} {what}: {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt} {name[:100]}")
+
+
 def profile_path(torch, M, cfg, params, prompt, h, lengths, max_len, tag,
                  decode_ms=None, steps: int = 3) -> None:
     """Print the device time by kernel of one prefill and of ``steps``
     decode steps (torch.profiler), the device's busy time, and its idle
     share against ``decode_ms``, the unprofiled host-clock step time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def table(prof, n, what, wall_ms):
-        rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                      key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        idle = "" if wall_ms is None else f", {100 * (1 - busy / wall_ms):.1f}% idle against " \
-                                          f"{wall_ms:.2f} ms unprofiled"
-        print(f"profile {tag} {what}: device busy {busy:.3f} ms{idle}")
-        for name, ms, cnt in rows[:12]:
-            print(f"profile {tag} {what}: {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt} {name[:100]}")
 
     run = dict(quantized=True, lengths=lengths)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -458,14 +652,14 @@ def profile_path(torch, M, cfg, params, prompt, h, lengths, max_len, tag,
     with profile(activities=acts) as prof:
         _, cache = M.prefill(cfg, params, prompt, h, max_len=max_len, **run)
         torch.cuda.synchronize()
-    table(prof, 1, "prefill", None)
+    profile_table(prof, 1, tag, "prefill")
     tok, pos = prompt[:, 0].clone(), lengths.clone()
     with profile(activities=acts) as prof:
         for _ in range(steps):
             _, cache = M.decode_step(cfg, params, cache, tok, pos, h, quantized=True)
             pos = pos + 1
         torch.cuda.synchronize()
-    table(prof, steps, "decode step", decode_ms)
+    profile_table(prof, steps, tag, "decode step", decode_ms)
 
 
 def cosine(a, b) -> float:
@@ -597,10 +791,150 @@ def serve_nv(torch, layers: int, steps: int, prof: bool = False) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 6: Quartet QAT training at Qwen3-8B MLP width
+# ---------------------------------------------------------------------------
+
+def _planes_to_natural(v):
+    """[R, K] with K plane-major (column p = element 2p, K/2 + p = 2p+1)
+    -> natural order."""
+    r, k = v.shape
+    return v.reshape(r, 2, k // 2).transpose(1, 2).reshape(r, k)
+
+
+def train_qat(torch, prof: bool = False, lr: float = QAT_LR) -> dict:
+    """Phase 6: the QAT example's MLP at Qwen3-8B width trained with Adam
+    in each grad mode; gradient cosines against the exact STE; the
+    reference's byte-level MXFP8 backward flow on layer 1.  Returns the
+    phase's launch counts."""
+    import torch.nn.functional as F
+    import qutlass_tpu_torch as qt
+    from qutlass_tpu_torch.nn import linear as L
+    from qutlass_tpu_torch.ops import dispatch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    mlp = L.QuartetMLP(QAT_D, QAT_H, QAT_D, rot_size=ROT, method="quest", device=dev,
+                       generator=gen)
+    init = {k: v.clone() for k, v in mlp.state_dict().items()}
+    teacher = torch.randn((QAT_D, QAT_D), generator=gen, device=dev) * QAT_D ** -0.5
+    xs = [torch.randn((QAT_TOKENS, QAT_D), generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(QAT_STEPS)]
+    targets = [x.float() @ teacher.T for x in xs]
+
+    def loss_of(i):
+        return ((mlp(xs[i]).float() - targets[i]) ** 2).mean()
+
+    # the first step's weight gradients in each mode, against the exact STE
+    grads = {}
+    for mode in ("bf16", "int8", "mxfp8"):
+        mlp.load_state_dict(init)
+        mlp.set_grad_mode(mode)
+        mlp.zero_grad(set_to_none=True)
+        loss_of(0).backward()
+        grads[mode] = [mlp.fc1.weight.grad.clone(), mlp.fc2.weight.grad.clone()]
+    cos = {mode: [cosine(a, b) for a, b in zip(grads[mode], grads["bf16"])]
+           for mode in ("int8", "mxfp8")}
+    print(f"phase 6 first-step weight gradient cosines to the exact STE (bf16 mode), "
+          f"[w1, w2]: int8 {cos['int8']}, mxfp8 {cos['mxfp8']}")
+    require(min(cos["int8"]) >= 0.999, f"int8 gradients too far from the exact STE: {cos['int8']}")
+    require(min(cos["mxfp8"]) >= 0.99, f"mxfp8 gradients too far from the exact STE: {cos['mxfp8']}")
+    del grads
+
+    step_ms, trajectories = {}, {}
+    for mode in L.GRAD_MODES:
+        mlp.load_state_dict(init)
+        mlp.set_grad_mode(mode)
+        opt = torch.optim.Adam(mlp.parameters(), lr=lr)
+        losses, times = [], []
+        for i in range(QAT_STEPS):
+            t0 = time.perf_counter()
+            loss = loss_of(i)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())       # waits for the step
+            times.append((time.perf_counter() - t0) * 1e3)
+        trajectories[mode] = losses
+        step_ms[mode] = sum(times[1:]) / (QAT_STEPS - 1)
+        print(f"phase 6 grad_mode={mode}: {step_ms[mode]:.2f} ms/step (host clock, mean of steps "
+              f"2-{QAT_STEPS}; step 1 {times[0]:.1f} ms); losses {[round(v, 5) for v in losses]}")
+        if prof:
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                loss = loss_of(0)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                opt.step()
+                torch.cuda.synchronize()
+            profile_table(p, 1, f"QAT {mode}", "training step", step_ms[mode])
+    counts_train = dict(dispatch.launch_counts)
+    for mode, losses in trajectories.items():        # every mode's trajectory is printed first
+        require(all(map(math.isfinite, losses)), f"{mode}: non-finite loss {losses}")
+        require(losses[-1] < losses[0], f"{mode}: loss did not fall at lr {lr}: {losses}")
+
+    # the same MLP in plain bf16 autograd, for scale
+    w1 = init["fc1.weight"].clone().requires_grad_()
+    w2 = init["fc2.weight"].clone().requires_grad_()
+    opt = torch.optim.Adam([w1, w2], lr=lr)
+    times = []
+    for i in range(QAT_STEPS):
+        t0 = time.perf_counter()
+        y = F.silu((xs[i] @ w1.T).float()).to(torch.bfloat16) @ w2.T
+        loss = ((y.float() - targets[i]) ** 2).mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        loss.item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = sum(times[1:]) / (QAT_STEPS - 1)
+    print(f"phase 6 plain bf16 MLP (no quantization): {plain_ms:.2f} ms/step; quantized steps "
+          + ", ".join(f"{m} {step_ms[m] / plain_ms:.2f}x" for m in L.GRAD_MODES))
+
+    # the reference's byte-level backward flow on layer 1, held against the
+    # mxfp8 mode's contractions (before the clip mask and the unrotation)
+    mlp.load_state_dict(init)
+    mlp.set_grad_mode("mxfp8")
+    x, w, h = xs[0], mlp.fc1.weight.detach(), mlp.fc1.h
+    y1 = mlp.fc1(x)
+    y1.retain_grad()
+    y = mlp.fc2(F.silu(y1.float()).to(torch.bfloat16))
+    ((y.float() - targets[0]) ** 2).mean().backward()
+    dy = y1.grad
+    res = L.quartet_forward(x, w, h, "quest")[1]
+    dxh, dwh = L.quartet_grads_planes(res, dy, "quest", "mxfp8")
+    gq, g_rs, g_cs = qt.backward_bf16_square_double_mxfp8(dy)           # K9
+    wq, ws = qt.fusedQuantizeMx(w, h, method="quest")                     # K1, row-major
+    w8, w8s = qt.mxfp4_transpose_mxfp8(wq, ws)                            # K10
+    dxh_ref = qt.matmul_mxf8_bf16_tn(gq, w8, g_rs, w8s, 1.0)             # K11
+    xq, xsc = qt.fusedQuantizeMx(x, h, method="quest")
+    x8, x8s = qt.mxfp4_transpose_mxfp8(xq, xsc)                           # K10
+    dwh_ref = qt.matmul_mxf8_bf16_nn(gq, x8, g_cs, x8s, 1.0)             # K11
+    torch.cuda.synchronize()
+    counts = dict(dispatch.launch_counts)
+    flow = {k: counts[k] - counts_train[k] for k in counts}
+    cx, cw = cosine(dxh_ref, _planes_to_natural(dxh)), cosine(dwh_ref, _planes_to_natural(dwh))
+    print(f"phase 6 byte-level flow (K9, K10, K11) vs the mxfp8 mode's contractions: dXh cosine "
+          f"{cx:.6f}, dWh cosine {cw:.6f}")
+    require(min(cx, cw) >= 0.99, f"byte-level flow disagrees with the mxfp8 mode: {cx}, {cw}")
+    print(f"phase 6 peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launch counts {counts} (byte-level flow {flow})")
+    for name in ("quantize_mx", "gemm_int8_rank1", "square_double_scaled"):
+        require(counts_train[name] > 0, f"kernel {name} was not launched by the training steps")
+    for name in ("square_double_mxfp8", "mxfp4_transpose_mxfp8", "gemm_fp8_mx"):
+        require(flow[name] > 0, f"kernel {name} was not launched by the byte-level flow")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=36)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--qat-lr", type=float, default=QAT_LR)
     args = ap.parse_args()
     if not (ROOT / "qutlass_tpu_torch" / "csrc").is_dir():
         raise SmokeFailure("qutlass_tpu_torch/ not found beside chip_smoke.py")
@@ -634,6 +968,7 @@ def main() -> int:
                for name, (src, rep) in KERNELS.items()}
     compare_kernels(torch, results)
     compare_nv_kernels(torch, results)
+    compare_qat_kernels(torch, results)
 
     # phase 3
     t0 = time.perf_counter()
@@ -646,12 +981,17 @@ def main() -> int:
     print(f"phase 3 gpu tests ({time.perf_counter() - t0:.0f} s): {tail[0]}")
     require(test.returncode == 0, f"gpu tests failed:\n{test.stdout[-6000:]}\n{test.stderr[-2000:]}")
 
-    # phases 4 and 5; K3 runs on both paths, and its launches are the sum
+    # phases 4, 5 and 6; K1 and K3 run on several paths, and their launches
+    # are the sum
     counts = serve(torch, args.layers, STEPS, args.profile)
     for name in MX_PATH:
         results[name]["launches"] += counts[name]
     counts = serve_nv(torch, args.layers, STEPS, args.profile)
     for name in NV_PATH:
+        results[name]["launches"] += counts[name]
+    # phase 6
+    counts = train_qat(torch, args.profile, args.qat_lr)
+    for name in QAT_PATH:
         results[name]["launches"] += counts[name]
 
     print(json.dumps({"kernels": list(results.values())}))

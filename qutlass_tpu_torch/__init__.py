@@ -1,10 +1,11 @@
-"""qutlass_tpu_torch — the MXFP4 and NVFP4 W4A4 serving paths of
-``qutlass_tpu`` in PyTorch, with hand-written CUDA kernels for the NVIDIA
-H100 (sm_90a).
+"""qutlass_tpu_torch — the MXFP4 and NVFP4 W4A4 serving paths and the
+Quartet QAT training path of ``qutlass_tpu`` in PyTorch, with
+hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
 Same op names, argument conventions and stored bytes as the JAX package:
 
   * e2m1 data: ``uint8``, two values per byte, element 2i in the low nibble
+  * e4m3 data (MXFP8, the QAT backward): ``uint8`` bytes
   * e8m0 scales (MX, group 32) and e4m3 scales (NV, group 16): ``uint8``
     bytes (``torch.float8_e8m0fnu`` / ``float8_e4m3fn`` views are
     accepted)
@@ -37,6 +38,9 @@ __all__ = [
     "matmul_mxf4_bf16_kmajor_codes", "matmul_ada_mxf4_bf16_tn",
     "fusedQuantizeNv", "fusedQuantizeNvInt8", "fused_quantize_nv",
     "fused_quantize_nv_int8", "matmul_nvf4_bf16_tn", "matmul_nvf4_bf16_kmajor",
+    "matmul_mxf8_bf16_tn", "matmul_mxf8_bf16_nn",
+    "backward_bf16_square_double_mxfp8", "backward_square_double_scaled",
+    "mxfp4_transpose_mxfp8",
     "to_blocked", "from_blocked", "pad_to_block", "hadamard_matrix",
     "identity_matrix",
 ]
@@ -235,3 +239,69 @@ def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
     return _ops.matmul_nvf4_bf16_kmajor(_as_bytes(at), _as_bytes(bt),
                                         _as_bytes(a_sft), _as_bytes(b_sft),
                                         alpha)
+
+
+def matmul_mxf8_bf16_tn(a, b, a_sf, b_sf, alpha):
+    """MXFP8 GEMM, TN: out[M, N] = (dq(a) @ dq(b)^T) * alpha in bf16.
+
+    a: e4m3 bytes [M, K], b: [N, K]; e8m0 scales [M, K/32] / [N, K/32]
+    (or a padded buffer, or its :func:`to_blocked` flattening).
+    """
+    a, b = _as_bytes(a), _as_bytes(b)
+    k = _val.check_matmul_fp8(a, b, 1)
+    return _ops.matmul_mxf8_bf16_tn(a, b, _norm_scales(a_sf, a.shape[0], k // 32),
+                                    _norm_scales(b_sf, b.shape[0], k // 32), alpha)
+
+
+def matmul_mxf8_bf16_nn(a, b, a_sf, b_sf, alpha):
+    """MXFP8 GEMM, NN: ``a`` stored [K, M] (the logical A^T, as the QAT
+    wgrad holds dY), its scales [M, K/32] for the logical A; b [N, K]."""
+    a, b = _as_bytes(a), _as_bytes(b)
+    k = _val.check_matmul_fp8(a, b, 0)
+    return _ops.matmul_mxf8_bf16_nn(a, b, _norm_scales(a_sf, a.shape[1], k // 32),
+                                    _norm_scales(b_sf, b.shape[0], k // 32), alpha)
+
+
+# ---------------------------------------------------------------------------
+# QAT backward ops
+# ---------------------------------------------------------------------------
+
+def backward_bf16_square_double_mxfp8(x_bf16):
+    """32x32-tile double quantization of dY [M, N] to MXFP8, M padded with
+    zero rows to a multiple of 128.  Returns (e4m3 bytes u8 [Mp, N], row
+    scales u8 [Mp, N/32], col scales u8 [N, Mp/32])."""
+    _val.check_bf16("x", x_bf16)
+    x = pad_to_block(x_bf16, [0], 128).contiguous()
+    _val.check_tiles_32("backward_bf16_square_double_mxfp8", *x.shape)
+    return _ops.backward_bf16_square_double_mxfp8(x)
+
+
+def backward_square_double_scaled(x_bf16):
+    """The same quantization points as
+    :func:`backward_bf16_square_double_mxfp8`, returned as
+    ``e4m3_value * 2^(scale-127)`` in bf16 [Mp, N]."""
+    _val.check_bf16("x", x_bf16)
+    x = pad_to_block(x_bf16, [0], 128).contiguous()
+    _val.check_tiles_32("backward_square_double_scaled", *x.shape)
+    return _ops.backward_square_double_scaled(x)
+
+
+def mxfp4_transpose_mxfp8(x_fp4, scales):
+    """Dequantize MXFP4 [M, N] (packed u8 [M, N/2], e8m0 scales [M, N/32]
+    or the quantizer's padded buffer), transpose, and requantize in
+    32-groups along M to MXFP8.  M is padded to a multiple of 256 with
+    zero codes under unit scales (byte 127).  Returns (e4m3 bytes u8
+    [N, Mp], e8m0 u8 [N, Mp/32])."""
+    x_fp4 = _as_bytes(x_fp4)
+    m, n = x_fp4.shape[0], x_fp4.shape[1] * 2
+    rows = min(m, scales.shape[0]) if scales.ndim == 2 else m
+    scales = _norm_scales(scales, rows, n // 32)
+    mp = round_up(m, 256)
+    if mp != m:
+        x_fp4 = pad_to_block(x_fp4, [0], 256)
+    if scales.shape[0] < mp:
+        pad = torch.full((mp - scales.shape[0], n // 32), 127, dtype=torch.uint8,
+                         device=scales.device)
+        scales = torch.cat([scales, pad], dim=0)
+    _val.check_tiles_32("mxfp4_transpose_mxfp8", mp, n)
+    return _ops.mxfp4_transpose_mxfp8(x_fp4.contiguous(), scales)

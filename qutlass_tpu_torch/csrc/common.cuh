@@ -192,6 +192,55 @@ __device__ __forceinline__ int nv_group_byte(float v, int method, float gs) {
   return e4m3_byte(__fadd_rn(__fmul_rn(__fsqrt_rn(var), kQuestConst), kScaleEps));
 }
 
+// ---------------------------------------------------------------------------
+// MXFP8 (the QAT backward's square-double quantization and fp8 GEMM)
+// ---------------------------------------------------------------------------
+
+// shared exponent byte of a tile or group (codecs.mxfp8_shared_exp_bytes):
+// floor(log2 amax) - 7 + 127, wrapping mod 256; 127 where amax is 0 or NaN
+__device__ __forceinline__ int mxfp8_shared_exp(float amax) {
+  if (!(amax > 0.f)) return 127;
+  return ((((__float_as_int(amax) & 0x7F800000) >> 23) - 7) & 0xFF);
+}
+
+// 1 / 2^(e-127) as the exact power of two 2^(127-e), formed from the byte:
+// a multiply by it rounds like the division by the decoded scale, byte 0
+// (scale 2^-127, a subnormal) included.  Byte 255 (a NaN scale) gives NaN.
+__device__ __forceinline__ float mxfp8_inv_scale(int e) {
+  return e == 255 ? __int_as_float(0x7FC00000) : e8m0_decode(254 - e);
+}
+
+// fp32 -> nearest bf16 value as fp32; a NaN as the positive NaN
+__device__ __forceinline__ float bf16_round(float v) {
+  return v != v ? __int_as_float(0x7FC00000) : __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// bf16 bits of fp32 v, RTNE; a NaN as 0x7FC0
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return v != v ? (unsigned short)0x7FC0 : __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// e4m3 byte times e8m0 scale byte -> the exact bf16 bits, integer-only
+// (codecs.e4m3_decode_scaled_bf16): subnormal e4m3 values are normalized,
+// exponent underflow gives the exact bf16 subnormal (RTNE), overflow inf,
+// a NaN byte or scale byte 255 gives 0x7FC0 with the byte's sign.
+__device__ __forceinline__ unsigned int e4m3_scaled_bf16_bits(int b, int sb) {
+  const int e = (b >> 3) & 0xF, m = b & 7;
+  const int t = m > 3 ? 2 : (m > 1 ? 1 : 0);
+  const int x = e == 0 ? t + sb - 9 : e + sb - 7;
+  const int mant = e == 0 ? (m - (1 << t)) << (7 - t) : m << 4;
+  const int s = min(max(1 - x, 1), 15);
+  const int sig = 0x80 | mant;
+  const int shifted = sig >> s;
+  const int rem = sig & ((1 << s) - 1);
+  const int half = 1 << (s - 1);
+  const int subn = shifted + ((rem > half) | ((rem == half) & (shifted & 1)));
+  const int hi = x >= 255 ? (255 << 7) : ((x << 7) | mant);
+  int bits = (e == 0 && m == 0) ? 0 : (x > 0 ? hi : subn);
+  if ((e == 15 && m == 7) || sb == 255) bits = 0x7FC0;
+  return (unsigned int)(bits | ((b & 0x80) << 8));
+}
+
 // Rotated element `col` of a 128-wide bf16 tile row held in shared memory:
 // sum over the rot-chunk containing col of x[c0 + i] * h[i][col - c0],
 // in fp32 (the products of two bf16 values are exact in fp32).

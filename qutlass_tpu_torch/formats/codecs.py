@@ -1,6 +1,6 @@
 """Shared low-precision codecs (device semantics, fp32/int32 arithmetic).
 
-PyTorch counterpart of ``qutlass_tpu.formats.codecs`` (MX and NV
+PyTorch counterpart of ``qutlass_tpu.formats.codecs`` (MX, NV and MXFP8
 parts).  The functions are plain tensor code, so they run on any device
 and serve as the arithmetic spec that the CUDA kernels in
 ``qutlass_tpu_torch/csrc`` implement bit for bit.
@@ -151,6 +151,21 @@ def e8m0_recip_f32(byte: torch.Tensor) -> torch.Tensor:
     return e8m0_decode_f32(254 - byte.to(torch.int32))
 
 
+def mxfp8_shared_exp_bytes(amax: torch.Tensor) -> torch.Tensor:
+    """MXFP8 double-quant shared exponent byte (int32):
+    ``floor(log2(amax)) - 7 + 127``, wrapping mod 256 like a uint8
+    store; amax 0 (and NaN) gives byte 127 (scale 1.0).
+
+    A tile with amax in [2^-120, 2^-119) gets byte 0 (scale 2^-127, an
+    fp32 subnormal); one with amax in [2^-121, 2^-120) gets byte 255
+    (NaN); a smaller amax wraps to a huge scale and quantizes to 0.  The
+    pow2 floor of an fp32-subnormal amax is byte 0, hence byte 249.
+    """
+    _, byte = pow2_floor_e8m0(amax)
+    return torch.where(amax > 0.0, torch.remainder(byte - 7, 256),
+                       torch.full_like(byte, 127))
+
+
 # ---------------------------------------------------------------------------
 # e4m3 (fp8 block scales)
 # ---------------------------------------------------------------------------
@@ -200,6 +215,42 @@ def e4m3_decode_f32(byte: torch.Tensor) -> torch.Tensor:
     v = torch.where(e == 0, m.to(torch.float32) * (2.0 ** -9), norm)
     v = torch.where((e == 15) & (m == 7), torch.full_like(v, float("nan")), v)
     return torch.where(b >= 0x80, -v, v)
+
+
+def e4m3_decode_scaled_bf16(data: torch.Tensor,
+                            scale_bytes: torch.Tensor) -> torch.Tensor:
+    """Decode e4m3 data bytes times e8m0 scales to EXACT bf16,
+    integer-only (an e4m3 value has a 4-bit significand; the scale is an
+    add on the bf16 exponent field).
+
+    Subnormal e4m3 values are normalized first; exponent underflow gives
+    the exact bf16 subnormal (RTNE on the shifted-out bits), overflow
+    saturates to inf; a NaN byte (0x7F / 0xFF) or scale byte 255 decodes
+    to NaN (0x7FC0 with the byte's sign).
+    """
+    b = data.to(torch.int32)
+    sb = scale_bytes.to(torch.int32)
+    e, m = (b >> 3) & 0xF, b & 7
+    t = torch.where(m > 3, 2, torch.where(m > 1, 1, 0))
+    mant_sub = (m - (1 << t)) << (7 - t)
+    x = torch.where(e == 0, t + sb - 9, e + sb - 7)       # bf16 exponent field
+    mant = torch.where(e == 0, mant_sub, m << 4)
+    s = torch.clamp(1 - x, 1, 15)
+    sig = 0x80 | mant
+    shifted = sig >> s
+    rem = sig & ((1 << s) - 1)
+    half = 1 << (s - 1)
+    subn = shifted + ((rem > half) | ((rem == half) & ((shifted & 1) == 1))
+                      ).to(torch.int32)
+    hi = torch.where(x >= 255, torch.full_like(x, 255 << 7), (x << 7) | mant)
+    bits = torch.where((e == 0) & (m == 0), torch.zeros_like(x),
+                       torch.where(x > 0, hi, subn))
+    bits = torch.where(((e == 15) & (m == 7)) | (sb == 255),
+                       torch.full_like(bits, 0x7FC0), bits)
+    bits = bits | ((b & 0x80) << 8)
+    # int16 view of the 16-bit pattern (values >= 0x8000 wrap to negative)
+    b16 = torch.where(bits >= 0x8000, bits - 0x10000, bits).to(torch.int16)
+    return b16.view(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------

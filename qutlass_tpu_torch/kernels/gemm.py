@@ -1,5 +1,6 @@
 """Wrappers of the GEMM kernels K3 (``csrc/gemm_int8_rank1.cu``), K4
-(``csrc/gemm_fp4_mx.cu``) and K7 (``csrc/gemm_fp4_nv.cu``).
+(``csrc/gemm_fp4_mx.cu``), K7 (``csrc/gemm_fp4_nv.cu``) and K11
+(``csrc/gemm_fp8_mx.cu``).
 
 Each wrapper routes by device: tensors on the CPU go to the kernel's
 plain version (``*_plain``, in ``ops.emulation``), tensors on a CUDA
@@ -7,7 +8,7 @@ device to the kernel.  Operands are passed to the kernels as logical row
 views with their strides, so row-major, K-major and sliced scale buffers
 need no copy.  A launch adds one to ``dispatch.launch_counts``.  An
 alpha that is a CUDA tensor stays on the card (no host sync): K3 takes
-it folded into ``sa``, K7 reads it from device memory.
+it folded into ``sa``, K7 and K11 read it from device memory.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ from . import _build
 
 _NV_PLAIN = {"tn": _emu.matmul_nvf4_bf16_tn,
              "kmajor": _emu.matmul_nvf4_bf16_kmajor}
+_FP8_PLAIN = {"tn": _emu.matmul_mxf8_bf16_tn,
+              "nn": _emu.matmul_mxf8_bf16_nn}
 _FP4_PLAIN = {"tn": _emu.matmul_mxf4_bf16_tn,
               "kmajor": _emu.matmul_mxf4_bf16_kmajor,
               "kmajor_codes": _emu.matmul_mxf4_bf16_kmajor_codes}
@@ -160,4 +163,49 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
         al.data_ptr(), c.data_ptr(), m, n, k, _stream(a))
     _build.check(err, "gemm_fp4_nv")
     dispatch.note_launch("gemm_fp4_nv")
+    return c
+
+
+def gemm_fp8_mx_plain(a, b, a_sf, b_sf, alpha, *, layout: str):
+    """Plain version of K11 for ``layout`` in ("tn", "nn")."""
+    return _FP8_PLAIN[layout](a, b, a_sf, b_sf, alpha)
+
+
+def gemm_fp8_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
+                b_sf: torch.Tensor, alpha, *, layout: str) -> torch.Tensor:
+    """Kernel K11: C[M, N] = bf16((dq(a) @ dq(b)^T) * alpha), MXFP8
+    operands (e4m3 bytes, an e8m0 byte per 32-group along K).
+
+    ``layout="tn"``: a u8 [M, K]; ``"nn"``: a stored u8 [K, M].  b u8
+    [N, K]; scales for the logical operands, a_sf [M, K/32] and b_sf
+    [N, K/32] (any strides).  ``alpha``: a number or a 1-element tensor.
+    """
+    if layout not in _FP8_PLAIN:
+        raise ValueError(f"invalid layout {layout!r}")
+    al = torch.as_tensor(alpha, dtype=torch.float32, device=a.device).reshape(())
+    if not dispatch.on_cuda(a, b, a_sf, b_sf, al):
+        return gemm_fp8_mx_plain(a, b, a_sf, b_sf, al, layout=layout)
+    for name, t in (("a", a), ("b", b), ("a_sf", a_sf), ("b_sf", b_sf)):
+        if t.dtype != torch.uint8 or t.ndim != 2:
+            raise TypeError(f"{name} must be a 2-D uint8 tensor, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    a_r = a if layout == "tn" else a.T               # logical [M, K]
+    (m, k), n = a_r.shape, b.shape[0]
+    if b.shape[1] != k:
+        raise ValueError(f"operands disagree on K: {tuple(a.shape)} vs "
+                         f"{tuple(b.shape)} ({layout})")
+    if k % 32:
+        raise ValueError(f"K={k} must be a multiple of 32")
+    if tuple(a_sf.shape) != (m, k // 32) or tuple(b_sf.shape) != (n, k // 32):
+        raise ValueError(f"scale shapes {tuple(a_sf.shape)} / {tuple(b_sf.shape)} "
+                         f"do not match M={m}, N={n}, K={k} ({layout})")
+    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    err = _build.library().qt_gemm_fp8_mx(
+        a_r.data_ptr(), a_r.stride(0), a_r.stride(1),
+        a_sf.data_ptr(), a_sf.stride(0), a_sf.stride(1),
+        b.data_ptr(), b.stride(0), b.stride(1),
+        b_sf.data_ptr(), b_sf.stride(0), b_sf.stride(1),
+        al.data_ptr(), c.data_ptr(), m, n, k, _stream(a))
+    _build.check(err, "gemm_fp8_mx")
+    dispatch.note_launch("gemm_fp8_mx")
     return c

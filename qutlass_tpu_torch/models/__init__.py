@@ -1,5 +1,6 @@
-"""Model family and serving harness on the MXFP4 and NVFP4 W4A4 paths."""
-from .convert import params_from_numpy, tensor_from_numpy
+"""Model family and serving harness on the MXFP4 and NVFP4 W4A4 paths, and
+the loader of the QAT example's weights."""
+from .convert import params_from_numpy, quartet_mlp_from_numpy, tensor_from_numpy
 from .serving import (decode_step, generate, init_cache, prefill,
                       sample_logits)
 from .transformer import (LLAMA31_8B, LLAMA31_70B, QWEN3_8B, QWEN3_14B,
@@ -11,4 +12,4 @@ __all__ = ["ModelConfig", "QWEN3_8B", "QWEN3_14B", "QWEN3_32B", "LLAMA31_8B",
            "LLAMA31_70B", "tiny_config", "init_params", "quantize_weight",
            "quantize_model_weights", "calibrate_nv_gsx", "forward", "init_cache",
            "prefill", "decode_step", "sample_logits", "generate",
-           "params_from_numpy", "tensor_from_numpy"]
+           "params_from_numpy", "quartet_mlp_from_numpy", "tensor_from_numpy"]

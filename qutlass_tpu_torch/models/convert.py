@@ -6,8 +6,9 @@ port's parameter dict on ``device`` (the card unless the caller names
 another): raw bf16 weights as well as the stored dicts of
 ``quantize_model_weights``, MX (``wi8``/``wsb``/``wqt``/``wst``/``am``
 leaves) and NV (``nvi8``/``nvsb``/``wqt``/``wst``/``gs``/``gsx``) alike,
-since the conversion is leaf by leaf.  This module needs neither JAX nor
-ml_dtypes.
+since the conversion is leaf by leaf.  ``quartet_mlp_from_numpy`` loads
+the QAT example's ``{"w1", "w2"}`` weights into a trainable
+``QuartetMLP``.  This module needs neither JAX nor ml_dtypes.
 """
 from __future__ import annotations
 
@@ -45,3 +46,20 @@ def params_from_numpy(params_np, device=None):
     if isinstance(params_np, (list, tuple)):
         return type(params_np)(params_from_numpy(v, device) for v in params_np)
     return tensor_from_numpy(params_np, device)
+
+
+def quartet_mlp_from_numpy(params_np, *, rot_size: int = 32, method: str = "quest",
+                           grad_mode: str = "int8", device=None):
+    """The QAT example's parameters (``{"w1": [hidden, in], "w2": [out,
+    hidden]}``, bf16 numpy) -> a ``QuartetMLP`` holding them as trainable
+    bf16 parameters on ``device`` (the card unless the caller names
+    another)."""
+    from ..nn.linear import QuartetMLP
+    p = params_from_numpy({"w1": params_np["w1"], "w2": params_np["w2"]}, device)
+    (d_hidden, d_in), d_out = p["w1"].shape, p["w2"].shape[0]
+    mlp = QuartetMLP(d_in, d_hidden, d_out, rot_size=rot_size, method=method,
+                     grad_mode=grad_mode, device=p["w1"].device)
+    with torch.no_grad():
+        mlp.fc1.weight.copy_(p["w1"])
+        mlp.fc2.weight.copy_(p["w2"])
+    return mlp

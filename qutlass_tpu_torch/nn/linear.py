@@ -1,6 +1,7 @@
 """Quantized W4A4 linears, MXFP4 and NVFP4 (counterpart of
 ``qutlass_tpu.nn.linear`` and of the quantized branches of
-``qutlass_tpu.models.transformer._linear``, inference part).
+``qutlass_tpu.models.transformer._linear``), and the Quartet QAT
+training linear (``quartet_linear``, ``QuartetLinear``; end of file).
 
 A weight [N, K] is quantized once, K-major, and stored as a dict whose
 leaves say which evaluator runs it.  MXFP4 (group 32, e8m0): the int8
@@ -26,8 +27,10 @@ import torch
 from torch import nn
 
 import qutlass_tpu_torch as q
+from ..kernels.gemm import gemm_int8_rank1
 from ..ops import int8path as I8
 from ..ops.emulation import rotate
+from ..utils import h128, pad_to_block, resolve_device
 
 _STORED = ("wi8", "wsb", "wqt", "wst", "nvi8", "nvsb", "gs", "gsx")
 # vLLM's NVFP4 global-scale convention: gs = 448 * 6 / amax puts the
@@ -190,3 +193,269 @@ class QuantizedLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return quantized_linear(x, self.stored(), self.h, self.method)
+
+
+# ---------------------------------------------------------------------------
+# Quartet QAT training (counterpart of qutlass_tpu.nn.linear.quartet_linear
+# and of qutlass_tpu.nn.flax_layers.QuartetDense)
+# ---------------------------------------------------------------------------
+
+GRAD_MODES = ("int8", "mxfp8", "bf16")
+
+
+def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for bf16 operands: exact products, fp32 accumulation, one
+    rounding of the result to bf16 (the JAX package's bf16 dot into fp32,
+    cast to bf16 right after).  On the card one cuBLAS call with an fp32
+    output, so split-K partial sums stay fp32 whatever
+    ``allow_bf16_reduced_precision_reduction`` says; on the CPU the fp32
+    product of the widened operands (bf16 products are exact in fp32)."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32).to(torch.bfloat16)
+    return (a.to(torch.float32) @ b.to(torch.float32)).to(torch.bfloat16)
+
+
+def _unrotate(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The inverse (transpose) rotation per contiguous rot-chunk of the
+    last axis, fp32 out.  When K is a multiple of 128 the operand is the
+    bf16 128-wide block-diagonal kron(I, H^T) and g is read in bf16, as
+    in the JAX package; else an fp32 product per chunk."""
+    rot, k = h.shape[-1], g.shape[-1]
+    if k % 128 == 0:
+        ht = h128(h, rot).T.to(torch.float32)
+        gr = g.reshape(-1, 128).to(torch.bfloat16).to(torch.float32)
+        return (gr @ ht).reshape(g.shape)
+    gr = g.reshape(-1, rot).to(torch.float32)
+    return (gr @ h.reshape(rot, rot).to(torch.float32).T).reshape(g.shape)
+
+
+def _unpack_mask_bits(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """u8 [..., K/8] -> fp32 0/1 [..., K] (bit i of byte j = element 8j+i)."""
+    m = mask.to(torch.int32)
+    bits = torch.stack([(m >> i) & 1 for i in range(8)], dim=-1)
+    return bits.reshape(*mask.shape[:-1], k).to(torch.float32)
+
+
+def _unpack_mask_planes(mask_t: torch.Tensor, k: int) -> torch.Tensor:
+    """K-major mask bytes [K/8, M] -> 0/1 bf16 [M, K] in plane-major
+    column order (``int8path.encode_int8_planes``): column p is natural
+    element 2p, column K/2 + p element 2p+1.  Bits {0,2,4,6} of byte j
+    are natural elements 8j, 8j+2, ... (plane columns 4j..4j+3); bits
+    {1,3,5,7} feed the odd half."""
+    bits = _unpack_mask_bits(mask_t.T, k)            # [M, K], natural order
+    return torch.cat([bits[:, 0::2], bits[:, 1::2]], dim=-1).to(torch.bfloat16)
+
+
+def _unrotate_planes(v_p: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Unrotate v_p [R, K] whose K axis is plane-major (column p =
+    natural element 2p, column K/2 + p = 2p+1) into natural order, fp32
+    out.  Natural 128-block b takes its even elements from plane columns
+    [64b, 64b+64) and its odd ones from the same range of the second
+    half, so with H^T split into its even and odd rows
+
+        dX_b = v_even_b @ H^T[0::2, :] + v_odd_b @ H^T[1::2, :]
+
+    (two fp32 products of bf16 operands, as the JAX package's dots)."""
+    rot = h.shape[-1]
+    r, k = v_p.shape
+    if k % 128 == 0:
+        ht = h128(h, rot).T.to(torch.float32)
+        ve = v_p[:, :k // 2].reshape(-1, 64).to(torch.bfloat16).to(torch.float32)
+        vo = v_p[:, k // 2:].reshape(-1, 64).to(torch.bfloat16).to(torch.float32)
+        return (ve @ ht[0::2] + vo @ ht[1::2]).reshape(r, k)
+    v = torch.stack([v_p[:, :k // 2], v_p[:, k // 2:]], dim=-1).reshape(r, k)
+    return _unrotate(v, h)
+
+
+def _int8_quantize_rows(v: torch.Tensor, axis: int):
+    """Symmetric int8 quantization of fp32 v per slice along the other
+    axis: (int8 codes, fp32 scale amax/127 per slice).  The JAX
+    package's ``/ 127.0`` compiles to a multiply by float32(1/127), which
+    is what is computed here."""
+    s = v.abs().amax(dim=axis) * I8.INV_127
+    inv = torch.where(s > 0, 1.0 / s, torch.zeros_like(s))
+    return torch.round(v * inv.unsqueeze(axis)).to(torch.int8), s
+
+
+def quantize_weights_mx(w: torch.Tensor, h: torch.Tensor, method: str = "quest"):
+    """Quantize a weight [N, K] once: (e2m1 u8 [N, K/2], e8m0 padded)."""
+    return q.fusedQuantizeMx(w, h, method=method)
+
+
+def quartet_linear_reference_flow(x, w, h, method: str = "quest") -> torch.Tensor:
+    """Non-differentiable forward on the row-major reference ops (K1, K4)."""
+    xq, xs = q.fusedQuantizeMx(x, h, method=method)
+    wq, ws = q.fusedQuantizeMx(w, h, method=method)
+    return q.matmul_mxf4_bf16_tn(xq, wq, xs, ws, 1.0)
+
+
+def _alpha(method: str) -> float:
+    """The forward's dequant constant: 1/9 folds the 3x scaling of both
+    abs-max operands."""
+    return 1.0 if method == "quest" else 1.0 / 9.0
+
+
+def quartet_forward(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
+                    method: str = "quest"):
+    """The Quartet forward: K1 (K-major, with the clip mask for QuEST) on
+    x [M, K] and w [N, K], the plane-major int8 encode of both, and K3
+    in the K-major x K-major order.  Returns (y bf16 [M, N], residuals
+    (xi int8 [K, M], sx f32 [M], wi int8 [K, N], sw f32 [N], mask_t u8
+    [K/8, M] or None)); the residuals dequantize exactly
+    (``plane * row scale``), so the backward needs no re-decode."""
+    if method == "quest":
+        xqt, xst, mask_t = q.fusedQuantizeMx(x, h, method=method, return_mask=True,
+                                             layout="kmajor")
+    else:
+        xqt, xst = q.fusedQuantizeMx(x, h, method=method, layout="kmajor")
+        mask_t = None
+    wqt, wst = q.fusedQuantizeMx(w, h, method=method, layout="kmajor")
+    xi, sx, _ = I8.encode_int8_planes(xqt, xst)
+    wi, sw, _ = I8.encode_int8_planes(wqt, wst)
+    y = I8.matmul_mxf4_bf16_int8_kk(xi, wi, sx, sw, _alpha(method))
+    return y, (xi, sx, wi, sw, mask_t)
+
+
+def quartet_grads_planes(res, gy: torch.Tensor, method: str, grad_mode: str):
+    """The backward's two contractions, before the clip mask and the
+    unrotation: (dxh bf16 [M, K], dwh bf16 [N, K]), K plane-major.
+
+    ``grad_mode``: "int8" quantizes dY*sw*alpha per row and dY*sx*alpha
+    per column to int8 and runs both contractions on K3 (sb = 1, alpha =
+    1, so its epilogue is ``float(acc) * scale``); "mxfp8" quantizes dY
+    square-double to MXFP8 with K8, then bf16 GEMMs; "bf16" takes dY as
+    it is (the exact STE).
+    """
+    xi, sx, wi, sw, _ = res
+    m = gy.shape[0]
+    al = _alpha(method)
+    if grad_mode == "int8":
+        gy32 = gy.to(torch.float32)
+        ones_k = torch.ones(wi.shape[0], dtype=torch.float32, device=gy.device)
+        gq_d, sg_d = _int8_quantize_rows(gy32 * (sw[None, :] * al), 1)     # [M, N], [M]
+        dxh = gemm_int8_rank1(gq_d, wi, sg_d, ones_k, 1.0, a_kmajor=False,
+                              b_kmajor=False)
+        # the per-column quantization of dY*sx, held transposed ([N, M]) so
+        # that both K3 operands run along tokens; the contraction over the
+        # M tokens is zero-padded to K3's 16-byte rows (zeros add nothing)
+        gq_wt, sg_w = _int8_quantize_rows((gy32 * (sx[:m, None] * al)).T.contiguous(), 1)
+        dwh = gemm_int8_rank1(pad_to_block(gq_wt, [1], 16), pad_to_block(xi[:, :m], [1], 16),
+                              sg_w, ones_k, 1.0, a_kmajor=False, b_kmajor=False)
+        return dxh, dwh
+    if grad_mode == "mxfp8":
+        g = q.backward_square_double_scaled(gy.to(torch.bfloat16))[:m].to(torch.float32)
+    elif grad_mode == "bf16":
+        g = gy.to(torch.float32)
+    else:
+        raise ValueError(f"unknown grad_mode {grad_mode!r}")
+    # the pow2 row scales of the dequantized operands fold into the
+    # gradient side (exact for QuEST, one rounding with alpha = 1/9)
+    gyw = (g * (sw[None, :] * al)).to(torch.bfloat16)
+    gyx = (g * (sx[:m, None] * al)).to(torch.bfloat16)
+    dxh = _bf16_matmul(gyw, wi.to(torch.bfloat16).T)
+    dwh = _bf16_matmul(gyx.T, xi[:, :m].to(torch.bfloat16).T)
+    return dxh, dwh
+
+
+def quartet_backward(res, h: torch.Tensor, gy: torch.Tensor, method: str,
+                     grad_mode: str):
+    """(dx bf16 [M, K], dw bf16 [N, K], dh zeros): the contractions of
+    :func:`quartet_grads_planes`, the clip-mask STE (QuEST), and the
+    unrotation from plane-major order."""
+    mask_t = res[4]
+    dxh, dwh = quartet_grads_planes(res, gy, method, grad_mode)
+    if method == "quest":
+        dxh = dxh * _unpack_mask_planes(mask_t, dxh.shape[1])
+    dx = _unrotate_planes(dxh, h).to(torch.bfloat16)
+    dw = _unrotate_planes(dwh, h).to(torch.bfloat16)
+    return dx, dw, torch.zeros_like(h)
+
+
+class _QuartetLinearFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, h, method, grad_mode):
+        y, res = quartet_forward(x, w, h, method)
+        ctx.save_for_backward(*res, h)
+        ctx.method, ctx.grad_mode = method, grad_mode
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        *res, h = ctx.saved_tensors
+        dx, dw, dh = quartet_backward(res, h, gy, ctx.method, ctx.grad_mode)
+        return dx, dw, dh, None, None
+
+
+def quartet_linear(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
+                   method: str = "quest", grad_mode: str = "int8") -> torch.Tensor:
+    """y = q(x H) @ q(w H)^T with Quartet MXFP4 W4A4 quantization,
+    differentiable in x [M, K] and w [N, K] (bf16) through the clip-mask
+    STE (QuEST); h [rot, rot] gets a zero gradient.  ``grad_mode`` picks
+    the backward arithmetic, all three from the same dequantized forward
+    operands: "int8" (default, every contraction on the int8 GEMM),
+    "mxfp8" (dY square-double quantized to MXFP8, the reference's
+    scheme), "bf16" (the exact STE)."""
+    if method not in ("quest", "abs_max"):
+        raise ValueError(f"invalid method {method!r}, must be 'quest' or 'abs_max'")
+    if grad_mode not in GRAD_MODES:
+        raise ValueError(f"unknown grad_mode {grad_mode!r}, must be one of {GRAD_MODES}")
+    return _QuartetLinearFn.apply(x, w, h, method, grad_mode)
+
+
+class QuartetLinear(nn.Module):
+    """W4A4 MXFP4 linear for quantization-aware training (counterpart of
+    the JAX package's ``QuartetDense``): a bf16 weight [N, K] parameter
+    and a ``rot_size`` Hadamard rotation.  In training mode it runs
+    :func:`quartet_linear`; in eval mode the JAX ``fused_linear_mxf4``
+    composition, K1 K-major on both operands, then the fp4 GEMM K4 (alpha
+    1/9 for abs-max).  The weight starts normal with std K^-0.5, drawn
+    from ``generator``; it lives on the card unless ``device`` says
+    otherwise."""
+
+    def __init__(self, in_features: int, out_features: int, *, rot_size: int = 32,
+                 method: str = "quest", grad_mode: str = "int8", device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.weight = nn.Parameter(torch.empty((out_features, in_features),
+                                               dtype=torch.bfloat16, device=dev))
+        self.register_buffer("h", q.hadamard_matrix(rot_size, device=dev))
+        self.method, self.grad_mode = method, grad_mode
+        self.reset_parameters(generator)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        n, k = self.weight.shape
+        w = torch.randn((n, k), generator=generator, device=self.weight.device) * k ** -0.5
+        with torch.no_grad():
+            self.weight.copy_(w.to(torch.bfloat16))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, k = self.weight.shape
+        x2 = x.reshape(-1, k).to(torch.bfloat16)
+        if self.training:
+            y = quartet_linear(x2, self.weight, self.h, self.method, self.grad_mode)
+        else:
+            w = self.weight.detach()
+            wqt, wst = q.fusedQuantizeMx(w, self.h, method=self.method, layout="kmajor")
+            xqt, xst = q.fusedQuantizeMx(x2.detach(), self.h, method=self.method,
+                                         layout="kmajor")
+            y = q.matmul_mxf4_bf16_kmajor(xqt, wqt, xst, wst, _alpha(self.method))
+        return y.reshape(*x.shape[:-1], n)
+
+
+class QuartetMLP(nn.Module):
+    """The QAT example's model: QuartetLinear(d_in -> d_hidden), SiLU in
+    fp32, QuartetLinear(d_hidden -> d_out); keyword arguments go to both
+    layers."""
+
+    def __init__(self, d_in: int, d_hidden: int, d_out: int, **kwargs):
+        super().__init__()
+        self.fc1 = QuartetLinear(d_in, d_hidden, **kwargs)
+        self.fc2 = QuartetLinear(d_hidden, d_out, **kwargs)
+
+    def set_grad_mode(self, grad_mode: str) -> None:
+        self.fc1.grad_mode = self.fc2.grad_mode = grad_mode
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.nn.functional.silu(self.fc1(x).to(torch.float32)).to(torch.bfloat16)
+        return self.fc2(y)

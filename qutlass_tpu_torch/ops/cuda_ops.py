@@ -1,4 +1,4 @@
-"""The public MX and NV ops mapped onto the hand-written kernels
+"""The public MX, NV and QAT ops mapped onto the hand-written kernels
 (counterpart of ``qutlass_tpu.ops.pallas_ops``).
 
 Every function here calls a kernel wrapper, which launches the Hopper
@@ -7,9 +7,11 @@ shape is routed around a kernel.
 """
 from __future__ import annotations
 
-from ..kernels.gemm import gemm_fp4_mx, gemm_fp4_nv
+from ..kernels import backward as _bwd
+from ..kernels.gemm import gemm_fp4_mx, gemm_fp4_nv, gemm_fp8_mx
 from ..kernels.quantize import (quantize_mx, quantize_mx_int8, quantize_nv,
                                 quantize_nv_int8)
+from .emulation import tile_scales
 
 
 def fused_quantize_mx(a, h, *, rot_size: int, method: str = "quest",
@@ -53,3 +55,24 @@ def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha):
 
 def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
     return gemm_fp4_nv(at, bt, a_sft, b_sft, alpha, layout="kmajor")
+
+
+def matmul_mxf8_bf16_tn(a, b, a_sf, b_sf, alpha):
+    return gemm_fp8_mx(a, b, a_sf, b_sf, alpha, layout="tn")
+
+
+def matmul_mxf8_bf16_nn(a, b, a_sf, b_sf, alpha):
+    return gemm_fp8_mx(a, b, a_sf, b_sf, alpha, layout="nn")
+
+
+def backward_bf16_square_double_mxfp8(x):
+    fp8, eb = _bwd.square_double_mxfp8(x)
+    return (fp8, *tile_scales(eb))
+
+
+def backward_square_double_scaled(x):
+    return _bwd.square_double_scaled(x)
+
+
+def mxfp4_transpose_mxfp8(x_fp4, scales):
+    return _bwd.mxfp4_transpose_mxfp8(x_fp4, scales)

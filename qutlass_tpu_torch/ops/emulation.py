@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the MX and NV ops (counterpart of
-``qutlass_tpu.ops.emulation``, serving parts).
+"""Plain PyTorch versions of the MX, NV and MXFP8 ops (counterpart of
+``qutlass_tpu.ops.emulation``: the serving parts and the QAT backward
+ops).
 
 Each function here is the plain version of one hand-written kernel in
 ``qutlass_tpu_torch/csrc``: the kernel wrappers call it for tensors on
@@ -259,3 +260,96 @@ def matmul_int8_rank1_plain(a_mk: torch.Tensor, b_nk: torch.Tensor,
     acc = (a_mk.to(torch.float64) @ b_nk.to(torch.float64).T).to(torch.float32)
     al = as_alpha(alpha, acc.device)
     return (acc * (sa[:, None] * al) * sb[None, :]).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# MXFP8 GEMM (plain version of kernel K11)
+# ---------------------------------------------------------------------------
+
+def dequant_fp8(data: torch.Tensor, scale_bytes: torch.Tensor) -> torch.Tensor:
+    """e4m3 bytes [R, K] + e8m0 bytes [R, K/32] -> exact bf16 [R, K]."""
+    sexp = scale_bytes.to(torch.int32).repeat_interleave(32, dim=-1)
+    return C.e4m3_decode_scaled_bf16(data, sexp)
+
+
+def matmul_mxf8_bf16_tn(a, b, a_sf, b_sf, alpha):
+    """out[M, N] = bf16((dq(a) @ dq(b)^T) * alpha): a/b e4m3 bytes
+    [M, K] / [N, K], e8m0 bytes [M, K/32] / [N, K/32] (any strides).
+
+    The bf16 operands' products are exact in fp64 and so is their sum
+    for any operands the quantizers emit; it is rounded once to fp32,
+    then scaled by alpha in fp32.
+    """
+    av = dequant_fp8(a, a_sf).to(torch.float64)
+    bv = dequant_fp8(b, b_sf).to(torch.float64)
+    acc = (av @ bv.T).to(torch.float32)
+    return (acc * as_alpha(alpha, acc.device)).to(torch.bfloat16)
+
+
+def matmul_mxf8_bf16_nn(a, b, a_sf, b_sf, alpha):
+    """NN order: a stored [K, M] (the logical A^T), a_sf [M, K/32] for
+    the logical A; b [N, K], b_sf [N, K/32]."""
+    return matmul_mxf8_bf16_tn(a.T, b, a_sf, b_sf, alpha)
+
+
+# ---------------------------------------------------------------------------
+# QAT backward ops (plain versions of kernels K8, K9 and K10)
+# ---------------------------------------------------------------------------
+
+def _bf16_round(v: torch.Tensor) -> torch.Tensor:
+    """fp32 -> nearest bf16 value as fp32, a NaN as the positive NaN
+    (the kernels' and the JAX package's; PyTorch's CPU cast of a NaN to
+    bf16 sets the sign bit)."""
+    r = v.to(torch.bfloat16).to(torch.float32)
+    return torch.where(torch.isnan(r), torch.full_like(r, float("nan")), r)
+
+
+def square_double_tiles(x: torch.Tensor):
+    """Square-double MXFP8 quantization of bf16 x [M, N] (M, N multiples
+    of 32): one shared exponent per 32x32 tile,
+    ``mxfp8_shared_exp_bytes(tile amax)``; each value divided by the
+    tile's scale 2^(e-127), rounded to bf16, then to e4m3 (RTNE,
+    saturating; a NaN gives 0x7F).  Returns (e4m3 bytes u8 [M, N],
+    exponent bytes u8 [M/32, N/32]).  Plain version of kernel K9.
+    """
+    m, n = x.shape
+    t = x.to(torch.float32).reshape(m // 32, 32, n // 32, 32)
+    ebyte = C.mxfp8_shared_exp_bytes(t.abs().amax(dim=(1, 3)))
+    q = _bf16_round(t / C.e8m0_decode_f32(ebyte)[:, None, :, None])
+    fp8 = C.e4m3_rtne_bytes(q).to(torch.uint8).reshape(m, n)
+    return fp8, ebyte.to(torch.uint8)
+
+
+def tile_scales(eb: torch.Tensor):
+    """The tiles' exponent matrix [M/32, N/32] expanded along each axis:
+    (row scales [M, N/32], col scales [N, M/32])."""
+    return eb.repeat_interleave(32, dim=0), eb.T.repeat_interleave(32, dim=0)
+
+
+def backward_bf16_square_double_mxfp8(x: torch.Tensor):
+    """(fp8 bytes [M, N], row scales [M, N/32], col scales [N, M/32])."""
+    fp8, eb = square_double_tiles(x)
+    return (fp8, *tile_scales(eb))
+
+
+def backward_square_double_scaled(x: torch.Tensor) -> torch.Tensor:
+    """``e4m3_value * 2^(e-127)`` in bf16 [M, N], the decode of
+    :func:`square_double_tiles` (the fp32 product rounded once to bf16).
+    Plain version of kernel K8."""
+    fp8, eb = square_double_tiles(x)
+    sc = C.e8m0_decode_f32(eb).repeat_interleave(32, 0).repeat_interleave(32, 1)
+    return (C.e4m3_decode_f32(fp8) * sc).to(torch.bfloat16)
+
+
+def mxfp4_transpose_mxfp8(x_fp4: torch.Tensor, scales: torch.Tensor):
+    """Dequantize MXFP4 (packed u8 [M, N/2], e8m0 bytes [M, N/32]; M a
+    multiple of 32), transpose, and requantize in 32-groups along M to
+    MXFP8 with the square-double rule: returns (e4m3 bytes u8 [N, M],
+    exponent bytes u8 [N, M/32]).  Plain version of kernel K10."""
+    m, n = x_fp4.shape[0], x_fp4.shape[1] * 2
+    xt = dequant_fp4(unpack_codes(x_fp4), scales).to(torch.float32).T
+    g = xt.reshape(n, m // 32, 32)
+    ebyte = C.mxfp8_shared_exp_bytes(g.abs().amax(dim=-1))
+    q = _bf16_round(g / C.e8m0_decode_f32(ebyte)[..., None])
+    return (C.e4m3_rtne_bytes(q).to(torch.uint8).reshape(n, m),
+            ebyte.to(torch.uint8))

@@ -52,3 +52,22 @@ def check_matmul_tn(a: torch.Tensor, b: torch.Tensor, gs: int):
     k = a.shape[1] * 2
     check_group_dim("matmul", k, gs)
     return a.shape[0], b.shape[0], k
+
+
+def check_tiles_32(name: str, m: int, n: int) -> None:
+    """The QAT backward ops quantize 32x32 tiles or 32-groups along both
+    axes of their [M, N] operand (M after the ops' own row padding)."""
+    if m % 32 or n % 32:
+        raise ValueError(f"{name}: M={m} and N={n} must be multiples of 32")
+
+
+def check_matmul_fp8(a: torch.Tensor, b: torch.Tensor, k_axis: int) -> int:
+    """MXFP8 GEMM operands: 2-D, a's axis ``k_axis`` and b's last axis
+    the shared K, a multiple of the group 32.  Returns K."""
+    if a.ndim != 2 or b.ndim != 2:
+        raise ValueError(f"operands must be 2-D, got {tuple(a.shape)} / {tuple(b.shape)}")
+    k = a.shape[k_axis]
+    if b.shape[1] != k:
+        raise ValueError(f"operands must share K={k}, got b {tuple(b.shape)}")
+    check_group_dim("matmul_mxf8", k, 32)
+    return k

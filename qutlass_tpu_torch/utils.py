@@ -71,3 +71,13 @@ def identity_matrix(n: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
     """Identity "rotation" (quantize without rotating), on the card unless
     ``device`` says otherwise."""
     return torch.eye(n, dtype=dtype, device=resolve_device(device))
+
+
+def h128(h: torch.Tensor, rot_size: int) -> torch.Tensor:
+    """The [rot, rot] rotation lifted to the 128x128 block-diagonal
+    kron(I, H) in bf16, on h's device."""
+    reps = 128 // rot_size
+    hb = h.to(torch.bfloat16)
+    if reps == 1:
+        return hb
+    return torch.kron(torch.eye(reps, dtype=torch.bfloat16, device=h.device), hb)

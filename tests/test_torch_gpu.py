@@ -9,17 +9,23 @@ mismatch rate (the kernels sum the rotation in another order than
 cuBLAS); NV quantizer scale bytes and codes within a 1e-4 mismatch rate
 (an e4m3 byte, unlike a power-of-two floor, moves with an ulp of its
 input), K6's a' and sigma equal wherever a row's bytes agree; GEMMs
-bitwise.
+bitwise, but K11 (fp32 sums of each 32-group, then fp64) within a 1e-3
+bf16 mismatch rate and 1 ulp of its fp64 plain version; the QAT
+backward kernels K8-K10 bitwise (a NaN's bf16 bits aside); one
+quartet_linear step on the card within cosine 0.9999 of the CPU step
+(K1's codes and cuBLAS's sums differ from the CPU's in order).
 """
 import pytest
 import torch
 
 import qutlass_tpu_torch as qt
 from qutlass_tpu_torch import models as M
+from qutlass_tpu_torch.kernels import backward as B
 from qutlass_tpu_torch.kernels import gemm as G
 from qutlass_tpu_torch.kernels import quantize as Q
 from qutlass_tpu_torch.ops import dispatch
 from qutlass_tpu_torch.ops import emulation as E
+from qutlass_tpu_torch.nn import linear as L
 from qutlass_tpu_torch.ops import int8path as I8
 
 pytestmark = pytest.mark.gpu
@@ -245,3 +251,235 @@ def test_cuda_serving_goes_through_the_kernels(dev):
     assert tuple(toks.shape) == (2, 3)
     a, b = logits.float().cpu().ravel(), ref.float().ravel()
     assert float(a @ b / (a.norm() * b.norm())) > 0.95
+
+
+# ---------------------------------------------------------------------------
+# the QAT training path: K8-K11, K3 in the int8 backward's orders, and
+# quartet_linear on the card against the CPU plain path
+# ---------------------------------------------------------------------------
+
+def _same_or_nan(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bits where finite-or-inf, NaN where the other is NaN (a NaN's
+    bf16 bits differ between PyTorch's CPU and CUDA casts)."""
+    if got.dtype == torch.bfloat16:
+        gn, wn = torch.isnan(got), torch.isnan(want)
+        return bool(torch.equal(gn, wn)) and torch.equal(
+            got.view(torch.int16)[~gn], want.view(torch.int16)[~wn])
+    return torch.equal(got, want)
+
+
+def _edge_tiles(dev, m=128, n=96):
+    """bf16 [m, n] whose 32x32 tiles hit the shared exponent's edges:
+    amax 0 (byte 127), amax in [2^-120, 2^-119) (byte 0, scale 2^-127),
+    in [2^-121, 2^-120) (byte 255, a NaN scale), 2^-123 (wraps to 253:
+    the tile quantizes to 0), inf and NaN, and normal tiles."""
+    x = _x(dev, m, n, seed=9, scale=3.0).float()
+    g = torch.Generator(device=dev).manual_seed(10)
+    u = torch.rand((32, 32), generator=g, device=dev) * 2 - 1
+    x[0:32, 0:32] = 0.0
+    x[32:64, 0:32] = u * 2.0 ** -119.5
+    x[32, 0] = 1.5 * 2.0 ** -120
+    x[64:96, 0:32] = u * 2.0 ** -120.5
+    x[64, 1] = 1.5 * 2.0 ** -121
+    x[96:128, 0:32] = u * 2.0 ** -123
+    x[0, 40] = float("inf")
+    x[40, 70] = float("nan")
+    return x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,n", [(128, 96), (256, 4096), (32, 32), (4096, 64)])
+def test_square_double_kernels(dev, m, n):
+    x = _edge_tiles(dev) if (m, n) == (128, 96) else _x(dev, m, n, seed=7, scale=8.0)
+    f, e = B.square_double_mxfp8(x)
+    fw, ew = B.square_double_mxfp8_plain(x)
+    s = B.square_double_scaled(x)
+    sw = B.square_double_scaled_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(e, ew) and torch.equal(f, fw)
+    assert _same_or_nan(s, sw)
+
+
+@pytest.mark.parametrize("m,n", [(256, 256), (32, 96), (512, 4096)])
+@pytest.mark.parametrize("method", ["quest", "abs_max"])
+def test_mxfp4_transpose_mxfp8_kernel(dev, m, n, method):
+    h = qt.hadamard_matrix(32, device=dev)
+    xq, xs = Q.quantize_mx(_x(dev, m, n, seed=8, scale=5.0), h, rot_size=32, method=method)
+    sc = xs[:m, :n // 32]                      # a strided slice of the padded buffer
+    f, e = B.mxfp4_transpose_mxfp8(xq, sc)
+    fw, ew = B.mxfp4_transpose_mxfp8_plain(xq, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(e, ew) and torch.equal(f, fw)
+
+
+def test_mxfp4_transpose_mxfp8_kernel_edge_scales(dev):
+    """Every e8m0 byte, 0 and 255 included, decodes exactly."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    m, n = 256, 256
+    xq = torch.randint(0, 256, (m, n // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.arange(m * n // 32, device=dev).remainder(256).to(torch.uint8).reshape(m, n // 32)
+    f, e = B.mxfp4_transpose_mxfp8(xq, sc)
+    fw, ew = B.mxfp4_transpose_mxfp8_plain(xq, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(e, ew) and torch.equal(f, fw)
+
+
+def _ulps(got, want):
+    ia, ib = got.view(torch.int16).int(), want.view(torch.int16).int()
+    return (ia != ib).float().mean().item(), (ia - ib).abs().max().item()
+
+
+def _mxfp8_operand(dev, rows, k, seed, random_bytes=False):
+    """e4m3 bytes [rows, K] and e8m0 scales [rows, K/32]: the
+    square-double quantization of a normal bf16 matrix, or random
+    non-NaN bytes under random scales near 1."""
+    if not random_bytes:
+        fp8, rs, _ = qt.backward_bf16_square_double_mxfp8(_x(dev, rows, k, seed=seed, scale=4.0))
+        return fp8[:rows], rs[:rows]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = torch.randint(0, 256, (rows, k), generator=g, device=dev, dtype=torch.uint8)
+    d[(d & 0x7F) == 0x7F] = 0
+    return d, torch.randint(124, 131, (rows, k // 32), generator=g, device=dev,
+                            dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("m,n,k,random_bytes", [(128, 96, 512, False), (70, 33, 96, False),
+                                                (256, 256, 4096, False),
+                                                (16, 384, 10752, False),
+                                                (96, 64, 1024, True)])
+@pytest.mark.parametrize("layout", ["tn", "nn"])
+def test_gemm_fp8_mx_kernel(dev, m, n, k, random_bytes, layout):
+    a, asf = _mxfp8_operand(dev, m, k, 12, random_bytes)
+    b, bsf = _mxfp8_operand(dev, n, k, 13, random_bytes)
+    aa = a if layout == "tn" else a.T.contiguous()
+    alpha = torch.tensor([0.5], device=dev)
+    got = G.gemm_fp8_mx(aa, b, asf, bsf, alpha, layout=layout)
+    want = G.gemm_fp8_mx_plain(aa, b, asf, bsf, alpha, layout=layout)
+    torch.cuda.synchronize()
+    rate, ulps = _ulps(got, want)
+    assert rate <= 1e-3 and ulps <= 1, (rate, ulps)
+
+
+def test_gemm_fp8_mx_kernel_public_ops(dev):
+    """The reference's byte flow on the card (tests/test_quartet.py's
+    shapes): square-double dY, transpose-requantize an MXFP4 operand, the
+    NN GEMM; each op launches its kernel and equals its plain version."""
+    m, n = 422, 256
+    x = _x(dev, m, n, seed=14, scale=5.0)
+    eye = torch.eye(32, dtype=torch.bfloat16, device=dev)
+    dispatch.reset_launch_counts()
+    a8, ar, ac = qt.backward_bf16_square_double_mxfp8(x)
+    fq, fs = qt.fusedQuantizeMx(x, eye, method="abs_max")
+    b8, be = qt.mxfp4_transpose_mxfp8(fq, fs)
+    out = qt.matmul_mxf8_bf16_nn(a8, b8, ac, be, 1.0)
+    out_tn = qt.matmul_mxf8_bf16_tn(a8.T.contiguous(), b8, ac, be, 1.0)
+    torch.cuda.synchronize()
+    counts = dict(dispatch.launch_counts)
+    for name in ("square_double_mxfp8", "mxfp4_transpose_mxfp8", "gemm_fp8_mx"):
+        assert counts[name] > 0, name
+    xc = x.cpu()
+    a8c, _, acc = qt.backward_bf16_square_double_mxfp8(xc)
+    fqc, fsc = qt.fusedQuantizeMx(xc, eye.cpu(), method="abs_max")
+    b8c, bec = qt.mxfp4_transpose_mxfp8(fqc, fsc)
+    assert torch.equal(a8.cpu(), a8c) and torch.equal(b8.cpu(), b8c)
+    want = qt.matmul_mxf8_bf16_nn(a8c, b8c, acc, bec, 1.0)
+    assert _ulps(out.cpu(), want)[1] <= 1 and torch.equal(out, out_tn)
+    ref = xc.double().T @ xc.double()
+    o = out.double().cpu()
+    assert float((o.ravel() @ ref.ravel()) / (o.norm() * ref.norm())) > 0.99
+
+
+@pytest.mark.parametrize("m", [96, 100, 4096])
+def test_gemm_int8_rank1_backward_orders(dev, m):
+    """K3 in the int8 backward's two orders, sb = 1 and alpha = 1: dgrad
+    [M, N] x [K, N] and wgrad [N, M] x [K, M] with M zero-padded to 16."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    n, k = 192, 256
+    gq = torch.randint(-127, 128, (m, n), generator=g, device=dev, dtype=torch.int8)
+    wi = torch.randint(-96, 97, (k, n), generator=g, device=dev, dtype=torch.int8)
+    xi = torch.randint(-96, 97, (k, m), generator=g, device=dev, dtype=torch.int8)
+    sg_m = torch.rand(m, generator=g, device=dev)
+    sg_n = torch.rand(n, generator=g, device=dev)
+    ones_k = torch.ones(k, device=dev)
+    dxh = G.gemm_int8_rank1(gq, wi, sg_m, ones_k, 1.0, a_kmajor=False, b_kmajor=False)
+    gqt = qt.pad_to_block(gq.T.contiguous(), [1], 16)
+    xip = qt.pad_to_block(xi, [1], 16)
+    dwh = G.gemm_int8_rank1(gqt, xip, sg_n, ones_k, 1.0, a_kmajor=False, b_kmajor=False)
+    torch.cuda.synchronize()
+    assert torch.equal(dxh, G.gemm_int8_rank1_plain(gq, wi, sg_m, ones_k, 1.0))
+    assert torch.equal(dwh, G.gemm_int8_rank1_plain(gq.T, xi, sg_n, ones_k, 1.0))
+
+
+def test_bf16_matmul_sums_in_fp32_on_the_card(dev):
+    """The training path's bf16 GEMM (one cuBLAS call with an fp32
+    output) rounds an fp32 sum once, also where the caller allows cuBLAS
+    a reduced-precision split-K reduction, and leaves that setting alone.
+    Positive operands: no cancellation, so the sum rounds as fp64's."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    a = torch.rand((64, 65536), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.rand((65536, 48), generator=g, device=dev).to(torch.bfloat16)
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = True
+    try:
+        y = L._bf16_matmul(a, b)
+        assert flags.allow_bf16_reduced_precision_reduction is True
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = prev
+    rate, ulps = _ulps(y, (a.double() @ b.double()).to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16 and rate <= 1e-2 and ulps <= 1
+
+
+def _cos(a, b):
+    a, b = a.float().cpu().ravel(), b.float().cpu().ravel()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+@pytest.mark.parametrize("grad_mode", ["int8", "mxfp8", "bf16"])
+@pytest.mark.parametrize("method", ["quest", "abs_max"])
+def test_quartet_linear_cuda_matches_cpu(dev, grad_mode, method):
+    """One quartet_linear step on the card launches K1 and K3 (and K8 for
+    mxfp8) and agrees with the same step on the CPU plain path."""
+    m, k, n = 200, 512, 384
+    x = _x(dev, m, k, seed=16)
+    w = _x(dev, n, k, seed=17, scale=k ** -0.5)
+    gy = _x(dev, m, n, seed=18, scale=0.1)
+    h = qt.hadamard_matrix(32, device=dev)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        xd = x.detach().to(d).clone().requires_grad_()
+        wd = w.detach().to(d).clone().requires_grad_()
+        dispatch.reset_launch_counts()
+        y = L.quartet_linear(xd, wd, h.to(d), method, grad_mode)
+        y.backward(gy.to(d))
+        outs.append((y.detach(), xd.grad, wd.grad, dict(dispatch.launch_counts)))
+    torch.cuda.synchronize()
+    (yc, dxc, dwc, counts), (y0, dx0, dw0, _) = outs
+    assert counts["quantize_mx"] == 2 and counts["gemm_int8_rank1"] == (
+        3 if grad_mode == "int8" else 1)
+    assert counts["square_double_scaled"] == (1 if grad_mode == "mxfp8" else 0)
+    for got, want in ((yc, y0), (dxc, dx0), (dwc, dw0)):
+        assert bool(torch.isfinite(got).all()) and _cos(got, want) >= 0.9999
+
+
+def test_quartet_mlp_trains_on_the_card(dev):
+    """A few Adam steps of the QAT example's MLP on the card lower the
+    loss; eval mode runs K1 and K4."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    mlp = L.QuartetMLP(256, 512, 256, device=dev, generator=g)
+    teacher = torch.randn((256, 256), generator=g, device=dev) * 0.1
+    opt = torch.optim.Adam(mlp.parameters(), lr=3e-3)
+    losses = []
+    for _ in range(8):
+        x = torch.randn((128, 256), generator=g, device=dev).to(torch.bfloat16)
+        loss = ((mlp(x).float() - x.float() @ teacher.T) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    assert losses[-1] < losses[0]
+    mlp.eval()
+    dispatch.reset_launch_counts()
+    with torch.no_grad():
+        y = mlp(x)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["gemm_fp4_mx"] == 2 and bool(torch.isfinite(y).all())

@@ -4,14 +4,14 @@
 Phases, in order; any failure exits non-zero before the result lines:
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions
-  1. build the eleven Hopper kernels from ``qutlass_tpu_torch/csrc``
+  1. build the fifteen Hopper kernels from ``qutlass_tpu_torch/csrc``
   2. hold each kernel against its plain PyTorch version at the main
      paths' shapes and time both (CUDA events after warm-up), beside
      the card's bound for the same work and, where one PyTorch call
      computes the same function, that call's time; the QAT kernels
      (K8-K11, K3 in the int8 backward's orders, and the training
      forward's K1 with the clip mask and K3) at the training shapes of
-     phase 6
+     phase 6, and the backward-operand kernels K12-K15 at phase 7's
   3. the ``gpu``-marked tests, ``tests/test_torch_gpu.py``
   4. MXFP4 serving: four ragged requests at Qwen3-8B width (seeded
      random weights, quantized on the card), 32 greedy tokens with the
@@ -26,8 +26,14 @@ Phases, in order; any failure exits non-zero before the result lines:
      10 Adam steps in each grad mode with falling loss, gradient
      cosines against the exact STE, and the reference's byte-level
      MXFP8 backward flow (K9, K10, K11) held against the mxfp8 mode
+  7. the Quartet backward-operand ops on layer 1 of phase 6's MLP (x
+     [4096, 4096], W1 [12288, 4096], dY [4096, 12288]): the natural-order
+     golden of the bf16 grad mode through K15, the reference backward
+     flow of ``qutlass_tpu/nn/linear.py`` through K8 and K14 against
+     phase 6's byte-level flow, and SURVEY.md 3.4's wgrad operands
+     through K12, K13 and the fp4 GEMM K4
 
-Phases 4, 5 and 6 each reset the kernels' launch counters just before
+Phases 4, 5, 6 and 7 each reset the kernels' launch counters just before
 they drive their path and read them just after.  Then one JSON line of
 per-kernel results and, last, the result line.
 
@@ -79,10 +85,20 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
                               "qutlass_tpu/kernels/backward.py:495"),
     "gemm_fp8_mx": ("qutlass_tpu_torch/csrc/gemm_fp8_mx.cu",
                     "qutlass_tpu/kernels/gemm.py:193"),
+    "backward_t_bf16": ("qutlass_tpu_torch/csrc/backward_quant.cu",
+                        "qutlass_tpu/kernels/backward.py:95"),
+    "backward_qt_bf16": ("qutlass_tpu_torch/csrc/backward_quant.cu",
+                         "qutlass_tpu/kernels/backward.py:173"),
+    "mxfp4_transpose_scaled": ("qutlass_tpu_torch/csrc/transpose_mxfp8.cu",
+                               "qutlass_tpu/kernels/backward.py:403"),
+    "mxfp4_transpose_scaled_kmajor": ("qutlass_tpu_torch/csrc/transpose_mxfp8.cu",
+                                      "qutlass_tpu/kernels/backward.py:461"),
 }
-# the H100 SXM's published peaks: HBM3 rate, dense bf16, fp8 and int8 tensor cores
+# the H100 SXM's published peaks: HBM3 rate, dense bf16, fp8 and int8 tensor
+# cores, and fp32 on the CUDA cores (printed beside a bound, never one: the
+# least time of a bf16 rotation is the tensor cores')
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12}
 ROT = 32
 
 
@@ -566,6 +582,108 @@ def compare_qat_kernels(torch, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the backward-operand ops: K12-K15 at phase 7's shapes
+# ---------------------------------------------------------------------------
+
+BWD_OPS = ("backward_t_bf16", "backward_qt_bf16", "mxfp4_transpose_scaled",
+           "mxfp4_transpose_scaled_kmajor")
+
+
+def compare_bwd_op_kernels(torch, results: dict) -> None:
+    """K12 on dY [4096, 12288] and x [4096, 4096], K13 on the row-major
+    abs-max MXFP4 of W1 [12288, 4096] and of x (alpha 3), K14 on the
+    row-major QuEST MXFP4 of both and K15 on their K-major twins, each
+    against its plain version on the card; W1's (dY's for K12) times go
+    to the JSON line.  K14 and K15 are bitwise (K14 also against the
+    decode of K10), K12 and K13 must have equal scale bytes and a code
+    mismatch rate within the MX budget (the rotation's fp32 sums run in
+    another order than cuBLAS's)."""
+    import qutlass_tpu_torch as qt
+    from qutlass_tpu_torch.formats import codecs as C
+    from qutlass_tpu_torch.kernels import backward as B
+    from qutlass_tpu_torch.kernels import quantize as Q
+    from qutlass_tpu_torch.ops import emulation as E
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    h = qt.hadamard_matrix(ROT, device=dev)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def record(name, shape, err, fn, plain_fn, nbytes, ops, main, extra=""):
+        ms, plain_ms = timed_ms(torch, fn), timed_ms(torch, plain_fn, 5)
+        bnd = bound(nbytes, ops, "bf16")
+        r = results[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if main:
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        print(f"phase 2 {name} {shape} max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bnd[0]:.6f} ({bnd[1]}){extra}")
+
+    def check_codes(name, tag, got, want):
+        """Scale bytes equal; (code mismatch count, rate, largest
+        difference of the dequantized values)."""
+        (q, s), (qw, sw) = got, want
+        require(torch.equal(s, sw), f"{name} scale bytes differ from its plain version on {tag}")
+        cg, cw = E.unpack_codes(q), E.unpack_codes(qw)
+        bad = int((cg != cw).sum())
+        rate = bad / cg.numel()
+        require(rate <= CODE_BUDGET, f"{name} code mismatch {rate} on {tag}")
+        err = (E.dequant_fp4(cg, s).float() - E.dequant_fp4(cw, s).float()).abs().max().item()
+        return bad, rate, err
+
+    al = torch.tensor([3.0], device=dev)
+    for tag, (n, k), scale in (("dY", (QAT_TOKENS, QAT_H), 1e-3), ("x", (QAT_TOKENS, QAT_D), 1.0)):
+        x = randn(n, k, scale=scale)
+        bad, rate, err = check_codes("K12", tag, B.backward_t_bf16(x, h, rot_size=ROT),
+                                     B.backward_t_bf16_plain(x, h, rot_size=ROT))
+        fp32_ms = 2 * ROT * n * k / PEAK_OPS_PER_S["fp32"] * 1e3
+        record("backward_t_bf16", (tag, n, k), err,
+               lambda: B.backward_t_bf16(x, h, rot_size=ROT),
+               lambda: B.backward_t_bf16_plain(x, h, rot_size=ROT),
+               2 * n * k + 2 * ROT * ROT + n * k // 2 + n * k // 32, 2 * ROT * n * k, tag == "dY",
+               f" scale bytes equal, code mismatches {bad} (rate {rate}); the rotation on the "
+               f"fp32 CUDA cores alone {fp32_ms:.6f} ms")
+    for tag, (m, n), scale in (("W1", (QAT_H, QAT_D), QAT_D ** -0.5), ("x", (QAT_TOKENS, QAT_D), 1.0)):
+        src = randn(m, n, scale=scale)
+        xq, xs = Q.quantize_mx(src, h, rot_size=ROT, method="abs_max")
+        sc = xs[:m, :n // 32]
+        bad, rate, err = check_codes("K13", tag, B.backward_qt_bf16(xq, sc, h, al, rot_size=ROT),
+                                     B.backward_qt_bf16_plain(xq, sc, h, al, rot_size=ROT))
+        nbytes = 2 * (m * n // 2 + m * n // 32) + 2 * ROT * ROT + 4
+        record("backward_qt_bf16", (tag, m, n), err,
+               lambda: B.backward_qt_bf16(xq, sc, h, al, rot_size=ROT),
+               lambda: B.backward_qt_bf16_plain(xq, sc, h, al, rot_size=ROT),
+               nbytes, 2 * ROT * m * n, tag == "W1",
+               f" alpha 3, scale bytes equal, code mismatches {bad} (rate {rate})")
+
+        # K14 and K15 on the QuEST operand, row-major and K-major
+        xq, xs = Q.quantize_mx(src, h, rot_size=ROT)
+        sc = xs[:m, :n // 32]
+        y = B.mxfp4_transpose_scaled(xq, sc)
+        require(_bits_or_nan_equal(torch, y, B.mxfp4_transpose_scaled_plain(xq, sc)),
+                f"K14 differs from its plain version on {tag}")
+        f8, e8 = B.mxfp4_transpose_mxfp8(xq, sc)
+        dec = (C.e4m3_decode_f32(f8) * C.e8m0_decode_f32(e8).repeat_interleave(32, 1))
+        require(_bits_or_nan_equal(torch, y, dec.to(torch.bfloat16)),
+                f"K14 differs from the decode of K10 on {tag}")
+        nbytes = m * n // 2 + m * n // 32 + 2 * m * n
+        record("mxfp4_transpose_scaled", (tag, m, n), 0.0, lambda: B.mxfp4_transpose_scaled(xq, sc),
+               lambda: B.mxfp4_transpose_scaled_plain(xq, sc), nbytes, 0, tag == "W1",
+               " bitwise, and bitwise against the decode of K10")
+        qk, sk = Q.quantize_mx(src, h, rot_size=ROT, layout="kmajor")
+        yk = B.mxfp4_transpose_scaled_kmajor(qk, sk)
+        require(_bits_or_nan_equal(torch, yk, B.mxfp4_transpose_scaled_kmajor_plain(qk, sk)),
+                f"K15 differs from its plain version on {tag}")
+        require(_bits_or_nan_equal(torch, yk, y), f"K15 differs from K14 on {tag}")
+        record("mxfp4_transpose_scaled_kmajor", (tag, n, m), 0.0,
+               lambda: B.mxfp4_transpose_scaled_kmajor(qk, sk),
+               lambda: B.mxfp4_transpose_scaled_kmajor_plain(qk, sk), nbytes, 0, tag == "W1",
+               " bitwise, and bitwise against K14 on the row-major operand")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve at Qwen3-8B width
 # ---------------------------------------------------------------------------
 
@@ -802,11 +920,13 @@ def _planes_to_natural(v):
     return v.reshape(r, 2, k // 2).transpose(1, 2).reshape(r, k)
 
 
-def train_qat(torch, prof: bool = False, lr: float = QAT_LR) -> dict:
+def train_qat(torch, prof: bool = False, lr: float = QAT_LR):
     """Phase 6: the QAT example's MLP at Qwen3-8B width trained with Adam
     in each grad mode; gradient cosines against the exact STE; the
     reference's byte-level MXFP8 backward flow on layer 1.  Returns the
-    phase's launch counts."""
+    phase's launch counts and layer 1's operands at the initial weights
+    (x, W1, the rotation, dY at y1, and the byte-level flow's dXh and
+    dWh) for phase 7."""
     import torch.nn.functional as F
     import qutlass_tpu_torch as qt
     from qutlass_tpu_torch.nn import linear as L
@@ -927,6 +1047,98 @@ def train_qat(torch, prof: bool = False, lr: float = QAT_LR) -> dict:
         require(counts_train[name] > 0, f"kernel {name} was not launched by the training steps")
     for name in ("square_double_mxfp8", "mxfp4_transpose_mxfp8", "gemm_fp8_mx"):
         require(flow[name] > 0, f"kernel {name} was not launched by the byte-level flow")
+    return counts, dict(x=x, w=w, h=h, dy=dy, dxh_ref=dxh_ref, dwh_ref=dwh_ref)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the Quartet backward-operand ops at Qwen3-8B MLP width
+# ---------------------------------------------------------------------------
+
+def _largest_rel_err(got, ref) -> float:
+    """max |got - ref| / |ref| over the elements with |ref| >= 1e-3 max|ref|."""
+    g, r = got.float(), ref.float()
+    big = r.abs() >= 1e-3 * r.abs().max()
+    return ((g - r).abs()[big] / r.abs()[big]).max().item()
+
+
+def backward_ops(torch, ops: dict) -> dict:
+    """Phase 7 on layer 1 of phase 6's MLP at its initial weights: (a)
+    tests/test_linear.py's natural-order golden of the bf16 grad mode at
+    full width through K15 against quartet_linear's autograd dX and dW;
+    (b) the reference backward flow of qutlass_tpu/nn/linear.py (K1
+    row-major, K8, K14, bf16 products) against phase 6's byte-level flow
+    (K9, K10, K11); (c) SURVEY.md 3.4's wgrad operands through K12 and
+    K13, multiplied by K4.  Returns the phase's launch counts."""
+    import qutlass_tpu_torch as qt
+    from qutlass_tpu_torch.nn import linear as L
+    from qutlass_tpu_torch.ops import dispatch
+    from qutlass_tpu_torch.ops import emulation as E
+
+    x, w, h, dy = ops["x"], ops["w"], ops["h"], ops["dy"]
+    m, k = x.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    # (a) the natural-order golden: K15 turns the forward's K-major operands
+    # into exact bf16 [K, rows]
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    L.quartet_linear(xr, wr, h, "quest", "bf16").backward(dy)
+    xqt, xst, mask_t = qt.fusedQuantizeMx(x, h, method="quest", return_mask=True,
+                                          layout="kmajor")
+    wqt, wst = qt.fusedQuantizeMx(w, h, method="quest", layout="kmajor")
+    wdq = qt.mxfp4_transpose_scaled_kmajor(wqt, wst)                    # K15, [K, N]
+    xdq = qt.mxfp4_transpose_scaled_kmajor(xqt, xst)                    # K15, [K, M]
+    dxh = L._bf16_matmul(dy, wdq.T) * L._unpack_mask_bits(mask_t.T, k).to(torch.bfloat16)
+    rx, rw = L._unrotate(dxh, h), L._unrotate(L._bf16_matmul(dy.T, xdq.T), h)
+    ca = (cosine(xr.grad, rx), cosine(wr.grad, rw))
+    ea = (_largest_rel_err(xr.grad, rx), _largest_rel_err(wr.grad, rw))
+    print(f"phase 7 (a) bf16 grad mode vs the natural-order golden through K15: cosine dX "
+          f"{ca[0]:.6f}, dW {ca[1]:.6f}; largest relative error (|ref| >= 1e-3 max) dX "
+          f"{ea[0]:.3e}, dW {ea[1]:.3e}")
+    del xr, wr, wdq, xdq, dxh, rx, rw
+
+    # (b) the reference backward flow: the primed operands pre-decoded to bf16
+    gq = qt.backward_square_double_scaled(dy)                            # K8
+    wq, ws = qt.fusedQuantizeMx(w, h, method="quest")                    # K1, row-major
+    xq, xs = qt.fusedQuantizeMx(x, h, method="quest")
+    w8, x8 = qt.mxfp4_transpose_scaled(wq, ws), qt.mxfp4_transpose_scaled(xq, xs)   # K14
+    cb = (cosine(L._bf16_matmul(gq, w8.T), ops["dxh_ref"]),
+          cosine(L._bf16_matmul(gq.T, x8.T), ops["dwh_ref"]))
+    print(f"phase 7 (b) reference backward flow (K8, K14, bf16 products) vs the byte-level "
+          f"flow (K9, K10, K11): cosine dXh {cb[0]:.6f}, dWh {cb[1]:.6f}")
+    del gq, w8, x8
+
+    # (c) the wgrad operands: each operand's codes carry the abs-max 3x, and
+    # K13 (alpha 3) of x's abs-max MXFP4, whose decode is 3x, carries 3x
+    # too (its plain version: byte = pow2floor(amax / 3), values times
+    # 3 / (3 * scale)); so the GEMM's alpha is 1/9 in both products
+    a, a_s = qt.backward_t_bf16(dy, h)                                   # K12, [N, M/2]
+    b, b_s = qt.backward_t_bf16(x, h)                                    # K12, [K, M/2]
+    xa, xas = qt.fusedQuantizeMx(x, h, method="abs_max")                 # K1
+    bq, bq_s = qt.backward_qt_bf16(xa, xas, h, 3.0)                      # K13, [K, M/2]
+    dqx = E.dequant_fp4(E.unpack_codes(xa), xas[:m, :k // 32]).float() / 3.0
+    dyt = dy.float().T
+    cc = []
+    for tag, (bb, bs), ref in (("K12 x K12 vs dY^T x", (b, b_s), dyt @ x.float()),
+                               ("K12 x K13 vs dY^T dq(x)", (bq, bq_s), dyt @ dqx)):
+        got = qt.matmul_mxf4_bf16_tn(a, bb, a_s, bs, 1.0 / 9.0).float()  # K4
+        cos, ratio = cosine(got, ref), (got.norm() / ref.norm()).item()
+        cc.append((cos, ratio))
+        print(f"phase 7 (c) wgrad {tag}: cosine {cos:.6f}, norm ratio {ratio:.6f}")
+        del got, ref
+    torch.cuda.synchronize()
+    counts = dict(dispatch.launch_counts)
+    print(f"phase 7 in {time.perf_counter() - t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launch counts {counts}")
+    require(min(ca) >= 0.9999, f"(a) bf16 grad mode vs the natural-order golden: {ca}")
+    require(min(cb) >= 0.9999, f"(b) reference flow vs the byte-level flow: {cb}")
+    for cos, ratio in cc:
+        require(cos >= 0.95 and 0.9 <= ratio <= 1.1,
+                f"(c) wgrad operands: cosine {cos}, norm ratio {ratio}")
+    for name in BWD_OPS:
+        require(counts[name] > 0, f"kernel {name} was not launched by phase 7")
     return counts
 
 
@@ -969,6 +1181,7 @@ def main() -> int:
     compare_kernels(torch, results)
     compare_nv_kernels(torch, results)
     compare_qat_kernels(torch, results)
+    compare_bwd_op_kernels(torch, results)
 
     # phase 3
     t0 = time.perf_counter()
@@ -981,7 +1194,7 @@ def main() -> int:
     print(f"phase 3 gpu tests ({time.perf_counter() - t0:.0f} s): {tail[0]}")
     require(test.returncode == 0, f"gpu tests failed:\n{test.stdout[-6000:]}\n{test.stderr[-2000:]}")
 
-    # phases 4, 5 and 6; K1 and K3 run on several paths, and their launches
+    # phases 4-7; K1, K3 and K4 run on several paths, and their launches
     # are the sum
     counts = serve(torch, args.layers, STEPS, args.profile)
     for name in MX_PATH:
@@ -990,9 +1203,12 @@ def main() -> int:
     for name in NV_PATH:
         results[name]["launches"] += counts[name]
     # phase 6
-    counts = train_qat(torch, args.profile, args.qat_lr)
+    counts, layer1 = train_qat(torch, args.profile, args.qat_lr)
     for name in QAT_PATH:
         results[name]["launches"] += counts[name]
+    # phase 7: every kernel it launched counts
+    for name, n in backward_ops(torch, layer1).items():
+        results[name]["launches"] += n
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

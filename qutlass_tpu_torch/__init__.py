@@ -40,7 +40,8 @@ __all__ = [
     "fused_quantize_nv_int8", "matmul_nvf4_bf16_tn", "matmul_nvf4_bf16_kmajor",
     "matmul_mxf8_bf16_tn", "matmul_mxf8_bf16_nn",
     "backward_bf16_square_double_mxfp8", "backward_square_double_scaled",
-    "mxfp4_transpose_mxfp8",
+    "mxfp4_transpose_mxfp8", "backward_t_bf16", "backward_qt_bf16",
+    "mxfp4_transpose_scaled", "mxfp4_transpose_scaled_kmajor",
     "to_blocked", "from_blocked", "pad_to_block", "hadamard_matrix",
     "identity_matrix",
 ]
@@ -286,12 +287,9 @@ def backward_square_double_scaled(x_bf16):
     return _ops.backward_square_double_scaled(x)
 
 
-def mxfp4_transpose_mxfp8(x_fp4, scales):
-    """Dequantize MXFP4 [M, N] (packed u8 [M, N/2], e8m0 scales [M, N/32]
-    or the quantizer's padded buffer), transpose, and requantize in
-    32-groups along M to MXFP8.  M is padded to a multiple of 256 with
-    zero codes under unit scales (byte 127).  Returns (e4m3 bytes u8
-    [N, Mp], e8m0 u8 [N, Mp/32])."""
+def _pad_rows_256(x_fp4: torch.Tensor, scales, name: str):
+    """The MXFP4 operand [M, N] with M padded to a multiple of 256: zero
+    codes under unit scales (byte 127), as the JAX ops pad it."""
     x_fp4 = _as_bytes(x_fp4)
     m, n = x_fp4.shape[0], x_fp4.shape[1] * 2
     rows = min(m, scales.shape[0]) if scales.ndim == 2 else m
@@ -303,5 +301,66 @@ def mxfp4_transpose_mxfp8(x_fp4, scales):
         pad = torch.full((mp - scales.shape[0], n // 32), 127, dtype=torch.uint8,
                          device=scales.device)
         scales = torch.cat([scales, pad], dim=0)
-    _val.check_tiles_32("mxfp4_transpose_mxfp8", mp, n)
-    return _ops.mxfp4_transpose_mxfp8(x_fp4.contiguous(), scales)
+    _val.check_tiles_32(name, mp, n)
+    return x_fp4.contiguous(), scales
+
+
+def mxfp4_transpose_mxfp8(x_fp4, scales):
+    """Dequantize MXFP4 [M, N] (packed u8 [M, N/2], e8m0 scales [M, N/32]
+    or the quantizer's padded buffer), transpose, and requantize in
+    32-groups along M to MXFP8.  M is padded to a multiple of 256 with
+    zero codes under unit scales (byte 127).  Returns (e4m3 bytes u8
+    [N, Mp], e8m0 u8 [N, Mp/32])."""
+    return _ops.mxfp4_transpose_mxfp8(*_pad_rows_256(x_fp4, scales,
+                                                     "mxfp4_transpose_mxfp8"))
+
+
+def mxfp4_transpose_scaled(x_fp4, scales):
+    """The quantization points of :func:`mxfp4_transpose_mxfp8` (the same
+    padding of M to 256) returned as ``e4m3_value * 2^(scale-127)`` in
+    bf16 [N, Mp], the operand of plain bf16 GEMMs."""
+    return _ops.mxfp4_transpose_scaled(*_pad_rows_256(x_fp4, scales,
+                                                      "mxfp4_transpose_scaled"))
+
+
+def mxfp4_transpose_scaled_kmajor(qt, st):
+    """:func:`mxfp4_transpose_scaled` from the K-major operand of
+    ``fusedQuantizeMx(..., layout="kmajor")``: packed u8 [K/2, rows], e8m0
+    u8 [K/32, rows] -> bf16 [K, rows], for any row count."""
+    qt, st = _as_bytes(qt), _as_bytes(st)
+    _val.check_kmajor_mx("mxfp4_transpose_scaled_kmajor", qt, st)
+    return _ops.mxfp4_transpose_scaled_kmajor(qt.contiguous(), st.contiguous())
+
+
+def backward_t_bf16(x, h):
+    """Transpose, rotate along N and quantize to MXFP4 in 32-groups along
+    N with abs-max scales (no +1e-8): the QAT wgrad operand.  x bf16
+    [..., N, K] -> (e2m1 u8 [..., K, N/2], e8m0 u8 [..., K, N/32]); N a
+    multiple of 32 and of the rotation size."""
+    _val.check_bf16("x", x)
+    _val.check_backward_rows("backward_t_bf16", x.shape, h)
+    return _ops.backward_t_bf16(x.contiguous(), h, rot_size=h.shape[-1])
+
+
+def backward_qt_bf16(x_e2m1, x_e8m0, h, alpha):
+    """Dequantize MXFP4 [..., M, N] without alpha, transpose, rotate along
+    M and requantize in 32-groups along M: scale bytes pow2floor(amax /
+    alpha), values times 3 / (scale * alpha).  x_e2m1 u8 [..., M, N/2];
+    x_e8m0 [..., M, N/32] or, for 2-D operands, the quantizer's padded
+    buffer (sliced).  Returns (e2m1 u8 [..., N, M/2], e8m0 u8 [..., N,
+    M/32])."""
+    x_e2m1, x_e8m0 = _as_bytes(x_e2m1), _as_bytes(x_e8m0)
+    if x_e2m1.ndim < 2:
+        raise ValueError(f"x_e2m1 must be [..., M, N/2], got {tuple(x_e2m1.shape)}")
+    m, n = x_e2m1.shape[-2], x_e2m1.shape[-1] * 2
+    if x_e2m1.ndim == 2:
+        x_e8m0 = _norm_scales(x_e8m0, m, n // 32)
+    elif x_e8m0.ndim == x_e2m1.ndim:
+        x_e8m0 = x_e8m0[..., :m, :n // 32]
+    if tuple(x_e8m0.shape) != (*x_e2m1.shape[:-1], n // 32):
+        raise ValueError(f"x_e8m0 {tuple(x_e8m0.shape)} does not cover "
+                         f"{(*x_e2m1.shape[:-1], n // 32)}")
+    _val.check_group_dim("backward_qt_bf16", n, 32)
+    _val.check_backward_rows("backward_qt_bf16", (*x_e2m1.shape[:-1], n), h)
+    return _ops.backward_qt_bf16(x_e2m1.contiguous(), x_e8m0, h, alpha,
+                                 rot_size=h.shape[-1])

@@ -151,6 +151,25 @@ def e8m0_recip_f32(byte: torch.Tensor) -> torch.Tensor:
     return e8m0_decode_f32(254 - byte.to(torch.int32))
 
 
+def backward_recip_f32(byte: torch.Tensor) -> torch.Tensor:
+    """The multiplier 1/scale of the backward abs-max quantizer for an
+    int e8m0 byte: exact 2^(127-byte), 2^127 at byte 0 (the fp64
+    golden's scale 2^-127 for a zero or subnormal group), 0 at byte 255
+    (an inf or NaN in the group: the JAX emulation divides by inf)."""
+    byte = byte.to(torch.int32)
+    return torch.where(byte == 255, torch.zeros((), dtype=torch.float32, device=byte.device),
+                       e8m0_recip_f32(byte))
+
+
+def backward_scale_f32(byte: torch.Tensor) -> torch.Tensor:
+    """The backward quantizer's scale for an int e8m0 byte: exact
+    2^(byte-127), 2^-127 at byte 0 (the golden's), inf at byte 255 (the
+    pow2 floor of an inf or NaN amax, as the JAX emulation holds it)."""
+    byte = byte.to(torch.int32)
+    return torch.where(byte == 255, torch.full((), float("inf"), device=byte.device),
+                       e8m0_decode_f32(byte))
+
+
 def mxfp8_shared_exp_bytes(amax: torch.Tensor) -> torch.Tensor:
     """MXFP8 double-quant shared exponent byte (int32):
     ``floor(log2(amax)) - 7 + 127``, wrapping mod 256 like a uint8

@@ -76,3 +76,19 @@ def backward_square_double_scaled(x):
 
 def mxfp4_transpose_mxfp8(x_fp4, scales):
     return _bwd.mxfp4_transpose_mxfp8(x_fp4, scales)
+
+
+def backward_t_bf16(x, h, *, rot_size: int):
+    return _bwd.backward_t_bf16(x, h, rot_size=rot_size)
+
+
+def backward_qt_bf16(x_e2m1, x_e8m0, h, alpha, *, rot_size: int):
+    return _bwd.backward_qt_bf16(x_e2m1, x_e8m0, h, alpha, rot_size=rot_size)
+
+
+def mxfp4_transpose_scaled(x_fp4, scales):
+    return _bwd.mxfp4_transpose_scaled(x_fp4, scales)
+
+
+def mxfp4_transpose_scaled_kmajor(qt, st):
+    return _bwd.mxfp4_transpose_scaled_kmajor(qt, st)

@@ -17,7 +17,8 @@ import torch
 KERNELS = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1",
            "gemm_fp4_mx", "quantize_nv", "quantize_nv_int8", "gemm_fp4_nv",
            "square_double_scaled", "square_double_mxfp8", "mxfp4_transpose_mxfp8",
-           "gemm_fp8_mx")
+           "gemm_fp8_mx", "backward_t_bf16", "backward_qt_bf16", "mxfp4_transpose_scaled",
+           "mxfp4_transpose_scaled_kmajor")
 
 launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
 

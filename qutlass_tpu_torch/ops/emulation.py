@@ -353,3 +353,85 @@ def mxfp4_transpose_mxfp8(x_fp4: torch.Tensor, scales: torch.Tensor):
     q = _bf16_round(g / C.e8m0_decode_f32(ebyte)[..., None])
     return (C.e4m3_rtne_bytes(q).to(torch.uint8).reshape(n, m),
             ebyte.to(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# Quartet backward-operand ops (plain versions of kernels K12-K15)
+# ---------------------------------------------------------------------------
+
+def _backward_quantize_g32(xh: torch.Tensor, alpha=None):
+    """The backward ops' abs-max 32-group MXFP4 quantizer (no +1e-8) on
+    the last axis of fp32 ``xh``: (int32 codes, int32 e8m0 bytes).
+
+    Without ``alpha`` (K12): byte = pow2floor(amax), q = (g * 2^(127-byte))
+    * 3, as the JAX emulation's ``g / scale * 3``.  With ``alpha`` (K13):
+    byte = pow2floor(amax / alpha) (a true division), q = g * (3 /
+    (scale * alpha)), the emulation's arithmetic.  A zero or subnormal
+    group (byte 0) takes the fp64 golden's scale 2^-127 where the
+    emulation divides by 0; there K13 doubles g and forms the multiplier
+    at 2^-126, the same product without the overflow of 3 / (2^-127 *
+    alpha) for alpha < 1.5.  Byte 255 (an inf or NaN in the group) has
+    the multiplier 0, as the emulation's division by inf.
+    """
+    g = xh.reshape(*xh.shape[:-1], -1, 32)
+    amax = g.abs().amax(-1)
+    if alpha is None:
+        byte = C.pow2_floor_e8m0(amax)[1]
+        q = g * C.backward_recip_f32(byte)[..., None] * 3.0
+    else:
+        al = as_alpha(alpha, g.device).expand_as(amax)
+        byte = C.pow2_floor_e8m0(amax / al)[1]
+        zero = byte == 0
+        sc = torch.where(zero, C.e8m0_decode_f32(torch.ones_like(byte)),
+                         C.backward_scale_f32(byte))
+        mul = torch.full_like(amax, 3.0) / (sc * al)      # a true division
+        q = torch.where(zero[..., None], g * 2.0, g) * mul[..., None]
+    return C.e2m1_rtne_codes(q.reshape(xh.shape)), byte
+
+
+def backward_t_bf16(x: torch.Tensor, h: torch.Tensor, *, rot_size: int):
+    """Transpose, rotate along N in ``rot_size`` chunks and quantize to
+    MXFP4 in 32-groups along N (the QAT wgrad operand): x bf16 [..., N,
+    K] -> (packed u8 [..., K, N/2], e8m0 u8 [..., K, N/32]).  Plain
+    version of kernel K12."""
+    codes, byte = _backward_quantize_g32(rotate(x.transpose(-2, -1), h, rot_size))
+    return pack_codes(codes), byte.to(torch.uint8)
+
+
+def backward_qt_bf16(x_e2m1: torch.Tensor, x_e8m0: torch.Tensor, h: torch.Tensor,
+                     alpha, *, rot_size: int):
+    """Dequantize MXFP4 [..., M, N] (packed u8 [..., M, N/2], e8m0 bytes
+    [..., M, N/32]) without alpha, transpose, rotate along M and
+    requantize in 32-groups along M with alpha: (packed u8 [..., N,
+    M/2], e8m0 u8 [..., N, M/32]).  Plain version of kernel K13."""
+    codes = unpack_codes(x_e2m1)
+    xdq = C.e2m1_decode_scaled_bf16(
+        codes, x_e8m0.to(torch.int32).repeat_interleave(32, dim=-1))
+    codes, byte = _backward_quantize_g32(rotate(xdq.transpose(-2, -1), h, rot_size),
+                                         alpha)
+    return pack_codes(codes), byte.to(torch.uint8)
+
+
+def mxfp4_transpose_scaled(x_fp4: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``e4m3_value * 2^(e-127)`` in bf16 [N, M], the decode of
+    :func:`mxfp4_transpose_mxfp8` (the fp32 product rounded once to
+    bf16).  Plain version of kernel K14."""
+    fp8, eb = mxfp4_transpose_mxfp8(x_fp4, scales)
+    sc = C.e8m0_decode_f32(eb).repeat_interleave(32, dim=1)
+    return (C.e4m3_decode_f32(fp8) * sc).to(torch.bfloat16)
+
+
+def mxfp4_transpose_scaled_kmajor(qt: torch.Tensor, st: torch.Tensor) -> torch.Tensor:
+    """The same from the K-major operand of ``fusedQuantizeMx(...,
+    layout="kmajor")``: packed u8 [K/2, rows] (element 2k of a row in the
+    low nibble), e8m0 u8 [K/32, rows] -> bf16 [K, rows], requantized in
+    32-groups along the rows.  Repacked row-major (the transpose of the
+    bytes), rows padded to 256 with zero codes under byte 127, as the JAX
+    op does.  Plain version of kernel K15."""
+    rows = qt.shape[1]
+    rp = round_up(rows, 256)
+    packed = torch.zeros((rp, qt.shape[0]), dtype=torch.uint8, device=qt.device)
+    packed[:rows] = qt.T
+    scales = torch.full((rp, st.shape[0]), 127, dtype=torch.uint8, device=st.device)
+    scales[:rows] = st.T
+    return mxfp4_transpose_scaled(packed, scales)[:, :rows]

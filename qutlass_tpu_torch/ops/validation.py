@@ -71,3 +71,28 @@ def check_matmul_fp8(a: torch.Tensor, b: torch.Tensor, k_axis: int) -> int:
         raise ValueError(f"operands must share K={k}, got b {tuple(b.shape)}")
     check_group_dim("matmul_mxf8", k, 32)
     return k
+
+
+def check_backward_rows(name: str, shape, h: torch.Tensor) -> None:
+    """The QAT backward quantizers of [..., R, C] rotate along R and
+    quantize it in 32-groups: R a multiple of 32 and of the rotation
+    size."""
+    if len(shape) < 2:
+        raise ValueError(f"{name}: operand must be [..., rows, cols], got {tuple(shape)}")
+    r = shape[-2]
+    rot = check_rotation(h, r)
+    if r % 32:
+        raise ValueError(f"{name}: the rotated axis ({r}) must be a multiple of 32 "
+                         f"(rotation size {rot})")
+
+
+def check_kmajor_mx(name: str, qt: torch.Tensor, st: torch.Tensor) -> None:
+    """A K-major MXFP4 operand: packed [K/2, rows] and e8m0 [K/32, rows],
+    K a multiple of 32."""
+    if qt.ndim != 2 or st.ndim != 2:
+        raise ValueError(f"{name}: operands must be 2-D, got {tuple(qt.shape)} / "
+                         f"{tuple(st.shape)}")
+    k, rows = qt.shape[0] * 2, qt.shape[1]
+    check_group_dim(name, k, 32)
+    if tuple(st.shape) != (k // 32, rows):
+        raise ValueError(f"{name}: scales {tuple(st.shape)} do not match [{k // 32}, {rows}]")

@@ -416,11 +416,15 @@ def test_backward_flow_nn_gemm(m, n):
 # ---------------------------------------------------------------------------
 
 def test_qat_modules_import_no_jax():
-    """The QAT modules import neither JAX nor the JAX package (a clean
-    process)."""
+    """The QAT modules and the backward-operand ops import neither JAX nor
+    the JAX package (a clean process)."""
     code = ("import sys, qutlass_tpu_torch, qutlass_tpu_torch.kernels.backward, "
             "qutlass_tpu_torch.nn.linear, qutlass_tpu_torch.models.convert; "
             "from qutlass_tpu_torch.nn import QuartetLinear, quartet_linear; "
+            "from qutlass_tpu_torch import (backward_t_bf16, backward_qt_bf16, "
+            "mxfp4_transpose_scaled, mxfp4_transpose_scaled_kmajor); "
+            "from qutlass_tpu_torch.kernels.backward import (backward_t_bf16, "
+            "backward_qt_bf16, mxfp4_transpose_scaled, mxfp4_transpose_scaled_kmajor); "
             "bad = [m for m in sys.modules if m in ('jax', 'qutlass_tpu') or "
             "m.startswith(('jax.', 'qutlass_tpu.'))]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=PKG.parent, timeout=120)

@@ -11,7 +11,9 @@ cuBLAS); NV quantizer scale bytes and codes within a 1e-4 mismatch rate
 input), K6's a' and sigma equal wherever a row's bytes agree; GEMMs
 bitwise, but K11 (fp32 sums of each 32-group, then fp64) within a 1e-3
 bf16 mismatch rate and 1 ulp of its fp64 plain version; the QAT
-backward kernels K8-K10 bitwise (a NaN's bf16 bits aside); one
+backward kernels K8-K10, K14 and K15 bitwise (a NaN's bf16 bits aside);
+K12 and K13 scale bytes exact and codes within a 1e-4 mismatch rate (the
+rotation's fp32 sums in another order than cuBLAS's); one
 quartet_linear step on the card within cosine 0.9999 of the CPU step
 (K1's codes and cuBLAS's sums differ from the CPU's in order).
 """
@@ -483,3 +485,149 @@ def test_quartet_mlp_trains_on_the_card(dev):
         y = mlp(x)
     torch.cuda.synchronize()
     assert dispatch.launch_counts["gemm_fp4_mx"] == 2 and bool(torch.isfinite(y).all())
+
+
+# ---------------------------------------------------------------------------
+# the Quartet backward-operand ops: K12-K15
+# ---------------------------------------------------------------------------
+
+def _code_rate(got, want):
+    return (E.unpack_codes(got) != E.unpack_codes(want)).float().mean().item()
+
+
+def _bwd_input(dev, n, k, seed, special=False):
+    """bf16 [..., n, k]; ``special`` puts a zero group along N in every
+    column, a group of fp32-subnormal values and a NaN and an inf group
+    into the last matrix."""
+    x = _x(dev, n, k, seed=seed, scale=3.0).float()
+    if special:
+        x[32:64] = 0.0
+        x[64:96, 1] = torch.linspace(-1, 1, 32, device=dev) * 2.0 ** -130
+        x[96, 2] = float("nan")
+        x[128, 3] = float("inf")
+    return x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,rot", [((256, 512), 16), ((256, 512), 32), ((96, 70), 32),
+                                       ((128, 33), 128), ((2, 128, 64), 64),
+                                       ((4096, 4096), 32)])
+def test_backward_t_kernel(dev, shape, rot):
+    x = _x(dev, *shape, seed=12, scale=4.0)
+    h = qt.hadamard_matrix(rot, device=dev)
+    q, s = B.backward_t_bf16(x, h, rot_size=rot)
+    qw, sw = B.backward_t_bf16_plain(x, h, rot_size=rot)
+    torch.cuda.synchronize()
+    assert torch.equal(s, sw)
+    assert _code_rate(q, qw) <= 1e-4
+
+
+def test_backward_t_kernel_special_groups(dev):
+    """Zero, subnormal, NaN and inf groups: bytes 0, 0, 255, 255; equal to
+    the plain version on the card."""
+    x = _bwd_input(dev, 256, 64, 13, special=True)
+    h = qt.hadamard_matrix(32, device=dev)
+    q, s = B.backward_t_bf16(x, h, rot_size=32)
+    qw, sw = B.backward_t_bf16_plain(x, h, rot_size=32)
+    torch.cuda.synchronize()
+    assert torch.equal(s, sw) and _code_rate(q, qw) <= 1e-4
+    assert (s[:, 1] == 0).all() and s[1, 2] == 0 and s[2, 3] == 255 and s[3, 4] == 255
+    assert (q[:, 16:32] == 0).all() and (q[1, 32:48] != 0).any()
+
+
+@pytest.mark.parametrize("m,n,rot", [(256, 512, 32), (96, 64, 32), (128, 96, 128), (4096, 4096, 32)])
+@pytest.mark.parametrize("alpha", [1.0, 3.0])
+@pytest.mark.parametrize("method", ["quest", "abs_max"])
+def test_backward_qt_kernel(dev, m, n, rot, alpha, method):
+    h32 = qt.hadamard_matrix(32, device=dev)
+    xq, xs = Q.quantize_mx(_x(dev, m, n, seed=14, scale=5.0), h32, rot_size=32, method=method)
+    sc = xs[:m, :n // 32]                      # a strided slice of the padded buffer
+    h = qt.hadamard_matrix(rot, device=dev)
+    al = torch.tensor([alpha], device=dev)
+    q, s = B.backward_qt_bf16(xq, sc, h, al, rot_size=rot)
+    qw, sw = B.backward_qt_bf16_plain(xq, sc, h, al, rot_size=rot)
+    torch.cuda.synchronize()
+    assert torch.equal(s, sw)
+    assert _code_rate(q, qw) <= 1e-4
+
+
+@pytest.mark.parametrize("alpha", [1.0, 3.0, 0.75])
+def test_backward_qt_kernel_special_groups(dev, alpha):
+    """Random codes under every scale byte (0: subnormal values; 255:
+    NaN), zero rows, and a batch of two: equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    xq = torch.randint(0, 256, (2, 256, 128), generator=g, device=dev, dtype=torch.uint8)
+    xs = torch.arange(2 * 256 * 8, device=dev).remainder(256).to(torch.uint8).reshape(2, 256, 8)
+    xq[1, 32:64], xs[1, 32:64] = 0, 127
+    h = qt.hadamard_matrix(32, device=dev)
+    q, s = B.backward_qt_bf16(xq, xs, h, alpha, rot_size=32)
+    qw, sw = B.backward_qt_bf16_plain(xq, xs, h, alpha, rot_size=32)
+    torch.cuda.synchronize()
+    assert torch.equal(s, sw)
+    assert _code_rate(q, qw) <= 1e-4
+    assert (s[1, :, 1] == 0).all() and (s == 255).any()
+
+
+@pytest.mark.parametrize("m,n", [(256, 256), (96, 512), (4096, 4096)])
+@pytest.mark.parametrize("method", ["quest", "abs_max"])
+def test_mxfp4_transpose_scaled_kernel(dev, m, n, method):
+    """Bitwise against the plain version and against the decode of K10."""
+    h = qt.hadamard_matrix(32, device=dev)
+    xq, xs = Q.quantize_mx(_x(dev, m, n, seed=16, scale=5.0), h, rot_size=32, method=method)
+    sc = xs[:m, :n // 32]
+    y = B.mxfp4_transpose_scaled(xq, sc)
+    yw = B.mxfp4_transpose_scaled_plain(xq, sc)
+    f, e = B.mxfp4_transpose_mxfp8(xq, sc)
+    torch.cuda.synchronize()
+    assert _same_or_nan(y, yw)
+    dec = (qt.codecs.e4m3_decode_f32(f)
+           * qt.codecs.e8m0_decode_f32(e).repeat_interleave(32, 1)).to(torch.bfloat16)
+    assert _same_or_nan(y, dec)
+
+
+def test_mxfp4_transpose_scaled_kernels_every_scale_byte(dev):
+    """Every e8m0 byte (0 and 255 included) under random codes: K14 and
+    K15 (on the K-major bytes of the same operand, 300 rows) bitwise
+    against their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    m, n = 320, 512
+    xq = torch.randint(0, 256, (m, n // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.arange(m * n // 32, device=dev).remainder(256).to(torch.uint8).reshape(m, n // 32)
+    assert _same_or_nan(B.mxfp4_transpose_scaled(xq, sc), B.mxfp4_transpose_scaled_plain(xq, sc))
+    qk, sk = xq[:300].T.contiguous(), sc[:300].T.contiguous()
+    y = B.mxfp4_transpose_scaled_kmajor(qk, sk)
+    torch.cuda.synchronize()
+    assert y.shape == (n, 300)
+    assert _same_or_nan(y, B.mxfp4_transpose_scaled_kmajor_plain(qk, sk))
+
+
+@pytest.mark.parametrize("rows,k", [(256, 512), (300, 512), (17, 64), (4096, 4096)])
+@pytest.mark.parametrize("method", ["quest", "abs_max"])
+def test_mxfp4_transpose_scaled_kmajor_kernel(dev, rows, k, method):
+    """K15 on the K-major quantizer output: bitwise against its plain
+    version and against K14 on the row-major operand."""
+    h = qt.hadamard_matrix(32, device=dev)
+    x = _x(dev, rows, k, seed=18, scale=2.0)
+    qk, sk = Q.quantize_mx(x, h, rot_size=32, method=method, layout="kmajor")
+    y = B.mxfp4_transpose_scaled_kmajor(qk, sk)
+    assert _same_or_nan(y, B.mxfp4_transpose_scaled_kmajor_plain(qk, sk))
+    if rows % 32 == 0:
+        xq, xs = Q.quantize_mx(x, h, rot_size=32, method=method)
+        assert _same_or_nan(y, B.mxfp4_transpose_scaled(xq, xs[:rows, :k // 32]))
+    torch.cuda.synchronize()
+
+
+def test_backward_ops_public_api_on_the_card(dev):
+    """The four public ops on CUDA tensors launch K12-K15 once each."""
+    h = qt.hadamard_matrix(32, device=dev)
+    x = _x(dev, 300, 256, seed=19)
+    dispatch.reset_launch_counts()
+    qt.backward_t_bf16(x[:288], h)
+    xq, xs = qt.fusedQuantizeMx(x, h, method="abs_max")
+    qt.backward_qt_bf16(xq[:288], xs, h, 3.0)
+    assert qt.mxfp4_transpose_scaled(xq, xs).shape == (256, 512)
+    qk, sk = qt.fusedQuantizeMx(x, h, layout="kmajor")
+    assert qt.mxfp4_transpose_scaled_kmajor(qk, sk).shape == (256, 300)
+    torch.cuda.synchronize()
+    for name in ("backward_t_bf16", "backward_qt_bf16", "mxfp4_transpose_scaled",
+                 "mxfp4_transpose_scaled_kmajor"):
+        assert dispatch.launch_counts[name] == 1, name

@@ -4,14 +4,17 @@
 Phases, in order; any failure exits non-zero before the result lines:
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions
-  1. build the fifteen Hopper kernels from ``qutlass_tpu_torch/csrc``
+  1. build the seventeen Hopper kernels from ``qutlass_tpu_torch/csrc``
   2. hold each kernel against its plain PyTorch version at the main
      paths' shapes and time both (CUDA events after warm-up), beside
      the card's bound for the same work and, where one PyTorch call
      computes the same function, that call's time; the QAT kernels
      (K8-K11, K3 in the int8 backward's orders, and the training
      forward's K1 with the clip mask and K3) at the training shapes of
-     phase 6, and the backward-operand kernels K12-K15 at phase 7's
+     phase 6, the backward-operand kernels K12-K15 at phase 7's, and the
+     single-kernel linears K16 / K17 at decode, small-prefill and
+     prefill sizes of Qwen3-8B's MLP, also bitwise against the
+     composition they replace (K1 + K4, K5 + K7)
   3. the ``gpu``-marked tests, ``tests/test_torch_gpu.py``
   4. MXFP4 serving: four ragged requests at Qwen3-8B width (seeded
      random weights, quantized on the card), 32 greedy tokens with the
@@ -32,10 +35,16 @@ Phases, in order; any failure exits non-zero before the result lines:
      flow of ``qutlass_tpu/nn/linear.py`` through K8 and K14 against
      phase 6's byte-level flow, and SURVEY.md 3.4's wgrad operands
      through K12, K13 and the fp4 GEMM K4
+  8. the single-kernel quantized linear at Qwen3-8B MLP width: phase 6's
+     trained MLP in eval mode on 4, 64 and 4096 tokens, and an abs-max
+     layer, through ``fused_linear_mxf4`` with ``QUTLASS_TPU_FUSED_LINEAR``
+     unset (K1 + K4) and set (K16), bitwise equal; Qwen3-8B's gate and
+     down projections on NVFP4 weights through ``fused_linear_nvf4`` (K5 +
+     K7 against K17) on 4 and 64 tokens
 
-Phases 4, 5, 6 and 7 each reset the kernels' launch counters just before
-they drive their path and read them just after.  Then one JSON line of
-per-kernel results and, last, the result line.
+Phases 4 to 8 each reset the kernels' launch counters just before they
+drive their path (phase 8: each route's run) and read them just after.
+Then one JSON line of per-kernel results and, last, the result line.
 
 Usage: python3 chip_smoke.py [--layers N] [--profile] [--qat-lr LR]
 (``--layers`` cuts the serving depth only; the default is the model's 36
@@ -50,6 +59,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -93,6 +103,10 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
                                "qutlass_tpu/kernels/backward.py:403"),
     "mxfp4_transpose_scaled_kmajor": ("qutlass_tpu_torch/csrc/transpose_mxfp8.cu",
                                       "qutlass_tpu/kernels/backward.py:461"),
+    "fused_linear_mx": ("qutlass_tpu_torch/csrc/fused_linear.cu",
+                        "qutlass_tpu/kernels/fused_linear.py:144"),
+    "fused_linear_nv": ("qutlass_tpu_torch/csrc/fused_linear.cu",
+                        "qutlass_tpu/kernels/fused_linear.py:144"),
 }
 # the H100 SXM's published peaks: HBM3 rate, dense bf16, fp8 and int8 tensor
 # cores, and fp32 on the CUDA cores (printed beside a bound, never one: the
@@ -684,6 +698,90 @@ def compare_bwd_op_kernels(torch, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, the single-kernel linears: K16 and K17 at Qwen3-8B MLP shapes
+# ---------------------------------------------------------------------------
+
+# (M, K, N): every shape phase 8 gives K16 and K17 (decode, small prefill
+# and the training batch, into the gate/up width and out of the down
+# projection) and the serving rows' M = 512 (the JSON line's)
+FL_SHAPES = ((4, 4096, 12288), (64, 4096, 12288), (4, 12288, 4096), (64, 12288, 4096),
+             (512, 4096, 12288), (4096, 4096, 12288), (4096, 12288, 4096))
+FL_NV_GSX, FL_NV_ALPHA = 37.5, 0.7
+
+
+def compare_fused_linear_kernels(torch, results: dict) -> None:
+    """K16 (QuEST and abs-max) and K17 (abs-max, activation global scale
+    37.5, alpha 0.7) at FL_SHAPES, each bitwise against its plain version
+    and against the composition it replaces on the card (K1 K-major + K4,
+    K5 K-major + K7), with the times of all three."""
+    import qutlass_tpu_torch as qt
+    from qutlass_tpu_torch.kernels import fused_linear as FL
+    from qutlass_tpu_torch.kernels import gemm as G
+    from qutlass_tpu_torch.kernels import quantize as Q
+    from qutlass_tpu_torch.nn import linear as L
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    h = qt.hadamard_matrix(ROT, device=dev)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def mx_case(x, w, method):
+        # K4 takes a host alpha (no sync in the timed loop), K16 a device one
+        al = 1.0 if method == "quest" else float(torch.tensor(1 / 9, dtype=torch.float32))
+        al_dev = torch.full((), al, device=dev)
+        wqt, wst = Q.quantize_mx(w, h, rot_size=ROT, method=method, layout="kmajor")
+        kw = dict(rot_size=ROT, method=method)
+        return ("fused_linear_mx", method, wst.numel(),
+                lambda: FL.fused_linear_mx(x, wqt, wst, h, al_dev, **kw),
+                lambda: FL.fused_linear_mx_plain(x, wqt, wst, h, al_dev, **kw),
+                lambda: _compose_mx(G, Q, x, h, wqt, wst, al, kw))
+
+    def nv_case(x, w):
+        nqt, nst = Q.quantize_nv(w, h, L.nv_global_scale(L.rotated_amax(w, h)), rot_size=ROT,
+                                 layout="kmajor")
+        gsx = torch.full((), FL_NV_GSX, device=dev)
+        al = torch.full((), FL_NV_ALPHA, device=dev)
+        kw = dict(rot_size=ROT, method="abs_max")
+        return ("fused_linear_nv", "abs_max", nst.numel(),
+                lambda: FL.fused_linear_nv(x, nqt, nst, h, gsx, al, **kw),
+                lambda: FL.fused_linear_nv_plain(x, nqt, nst, h, gsx, al, **kw),
+                lambda: _compose_nv(G, Q, x, h, gsx, nqt, nst, al, kw))
+
+    for m, k, n in FL_SHAPES:
+        x, w = randn(m, k), randn(n, k, scale=k ** -0.5)
+        cases = [mx_case(x, w, "quest"), mx_case(x, w, "abs_max"), nv_case(x, w)]
+        for name, method, scale_bytes, fn, plain_fn, comp_fn in cases:
+            y, want, comp = fn(), plain_fn(), comp_fn()
+            require(torch.equal(y, want), f"{name} {method} differs from its plain version at "
+                                          f"{(m, k, n)}: {int((y != want).sum())} outputs")
+            require(torch.equal(y, comp), f"{name} {method} differs from the composition at "
+                                          f"{(m, k, n)}: {int((y != comp).sum())} outputs")
+            iters = 3 if m > 512 else 10      # ~0.1 s a call at M = 4096
+            ms, plain_ms = timed_ms(torch, fn, iters), timed_ms(torch, plain_fn, min(iters, 5))
+            comp_ms = timed_ms(torch, comp_fn, iters)
+            bnd = bound(2 * m * k + n * k // 2 + scale_bytes + 2 * m * n, 2 * m * n * k, "bf16")
+            if (m, k, n) == TIMED and (name == "fused_linear_nv" or method == "quest"):
+                results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+            print(f"phase 2 {name} {method} M,K,N={(m, k, n)} max_abs_err=0.0 ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} composition_ms={comp_ms:.4f} bound_ms={bnd[0]:.6f} "
+                  f"({bnd[1]}) bitwise vs plain and vs the composition")
+
+
+def _compose_mx(G, Q, x, h, wqt, wst, alpha, kw):
+    """The composition K16 replaces: K1 K-major on x, then K4."""
+    xqt, xst = Q.quantize_mx(x, h, layout="kmajor", **kw)
+    return G.gemm_fp4_mx(xqt, wqt, xst, wst, alpha, layout="kmajor")
+
+
+def _compose_nv(G, Q, x, h, gsx, wqt, wst, alpha, kw):
+    """The composition K17 replaces: K5 K-major on x, then K7."""
+    xqt, xst = Q.quantize_nv(x, h, gsx, layout="kmajor", **kw)
+    return G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha, layout="kmajor")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve at Qwen3-8B width
 # ---------------------------------------------------------------------------
 
@@ -924,9 +1022,10 @@ def train_qat(torch, prof: bool = False, lr: float = QAT_LR):
     """Phase 6: the QAT example's MLP at Qwen3-8B width trained with Adam
     in each grad mode; gradient cosines against the exact STE; the
     reference's byte-level MXFP8 backward flow on layer 1.  Returns the
-    phase's launch counts and layer 1's operands at the initial weights
-    (x, W1, the rotation, dY at y1, and the byte-level flow's dXh and
-    dWh) for phase 7."""
+    phase's launch counts, layer 1's operands at the initial weights (x,
+    W1, the rotation, dY at y1, and the byte-level flow's dXh and dWh)
+    for phase 7, and the MLP's weights after the last grad mode's steps
+    for phase 8."""
     import torch.nn.functional as F
     import qutlass_tpu_torch as qt
     from qutlass_tpu_torch.nn import linear as L
@@ -993,6 +1092,7 @@ def train_qat(torch, prof: bool = False, lr: float = QAT_LR):
                 torch.cuda.synchronize()
             profile_table(p, 1, f"QAT {mode}", "training step", step_ms[mode])
     counts_train = dict(dispatch.launch_counts)
+    trained = {k: v.detach().clone() for k, v in mlp.state_dict().items()}   # for phase 8
     for mode, losses in trajectories.items():        # every mode's trajectory is printed first
         require(all(map(math.isfinite, losses)), f"{mode}: non-finite loss {losses}")
         require(losses[-1] < losses[0], f"{mode}: loss did not fall at lr {lr}: {losses}")
@@ -1047,7 +1147,7 @@ def train_qat(torch, prof: bool = False, lr: float = QAT_LR):
         require(counts_train[name] > 0, f"kernel {name} was not launched by the training steps")
     for name in ("square_double_mxfp8", "mxfp4_transpose_mxfp8", "gemm_fp8_mx"):
         require(flow[name] > 0, f"kernel {name} was not launched by the byte-level flow")
-    return counts, dict(x=x, w=w, h=h, dy=dy, dxh_ref=dxh_ref, dwh_ref=dwh_ref)
+    return counts, dict(x=x, w=w, h=h, dy=dy, dxh_ref=dxh_ref, dwh_ref=dwh_ref), trained
 
 
 # ---------------------------------------------------------------------------
@@ -1142,6 +1242,142 @@ def backward_ops(torch, ops: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the single-kernel quantized linear at Qwen3-8B MLP width
+# ---------------------------------------------------------------------------
+
+SWITCH = "QUTLASS_TPU_FUSED_LINEAR"
+FL_TOKENS, FL_NV_TOKENS = (4, 64, 4096), (4, 64)
+
+
+def fused_linear_phase(torch, trained) -> dict:
+    """Phase 8: the QAT MLP of phase 6 at its trained weights (seeded ones
+    when ``trained`` is None) in eval mode, and one abs-max QuartetLinear
+    with its first layer's weight, through ``fused_linear_mxf4`` with the
+    switch unset (K1 + K4) and set (K16); Qwen3-8B's gate and down
+    projections as NVFP4 fp4-stored weights through ``fused_linear_nvf4``
+    (K5 + K7, K17).  Each route's run is counted on its own: the two give
+    the same bits, the single kernel launches and the composition's
+    kernels do not (the weight's K1 aside); both are timed (CUDA events).
+    Returns the launch counts summed over the counted runs."""
+    import torch.nn.functional as F
+    import qutlass_tpu_torch as qt
+    from qutlass_tpu_torch.nn import linear as L
+    from qutlass_tpu_torch.ops import dispatch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = qt.hadamard_matrix(ROT, device=dev)
+    total = {name: 0 for name in dispatch.KERNELS}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    def set_switch(value):
+        if value is None:
+            os.environ.pop(SWITCH, None)
+        else:
+            os.environ[SWITCH] = value
+
+    def run(value, fn):
+        set_switch(value)
+        dispatch.reset_launch_counts()
+        with torch.no_grad():
+            y = fn()
+        torch.cuda.synchronize()
+        counts = dict(dispatch.launch_counts)
+        for name, n in counts.items():
+            total[name] += n
+        return y, counts
+
+    def both_routes(tag, fn, single, comp, iters=10):
+        """Run and time fn under each route; require equal bits and the
+        launch counts ``single`` / ``comp`` (kernel: count) of each run."""
+        (yc, cc), (yf, cf) = run(None, fn), run("1", fn)
+        for counts, want, route in ((cf, single, "single kernel"), (cc, comp, "composition")):
+            got = {name: counts[name] for name in want}
+            require(got == want, f"phase 8 {tag}: {route} launch counts {got}, expected {want}")
+        require(torch.equal(yc, yf), f"phase 8 {tag}: the routes differ in "
+                                     f"{int((yc != yf).sum())} outputs")
+        with torch.no_grad():
+            set_switch(None)
+            ms_c = timed_ms(torch, fn, iters)
+            set_switch("1")
+            ms_f = timed_ms(torch, fn, iters)
+        return yf, ms_c, ms_f
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    old, t0 = os.environ.get(SWITCH), time.perf_counter()
+    try:
+        mlp = L.QuartetMLP(QAT_D, QAT_H, QAT_D, rot_size=ROT, method="quest", device=dev,
+                           generator=gen)
+        if trained is not None:
+            mlp.load_state_dict(trained)
+        mlp.eval()
+        w1, w2 = mlp.fc1.weight.detach(), mlp.fc2.weight.detach()
+        for m in FL_TOKENS:
+            x = randn(m, QAT_D)
+            # per layer: K1 on the weight (both routes) and on x, then K4; or K16
+            y, ms_c, ms_f = both_routes(
+                f"QuartetMLP M={m}", lambda: mlp(x),
+                {"fused_linear_mx": 2, "quantize_mx": 2, "gemm_fp4_mx": 0},
+                {"fused_linear_mx": 0, "quantize_mx": 4, "gemm_fp4_mx": 2},
+                iters=3 if m > 64 else 10)
+            ref = F.silu((x @ w1.T).float()).to(torch.bfloat16) @ w2.T
+            cos = cosine(y, ref)
+            # two W4A4 layers of random weights: 0.953 on the CPU at this width
+            # and seeded weights (one layer 0.974), so this bounds gross faults
+            require(bool(torch.isfinite(y).all()) and cos >= 0.9,
+                    f"phase 8 QuartetMLP M={m}: cosine {cos} to the bf16 MLP")
+            print(f"phase 8 MX QuartetMLP eval {QAT_D}->{QAT_H}->{QAT_D} M={m}: composition "
+                  f"(K1 + K4) {ms_c:.4f} ms, single kernel (K16) {ms_f:.4f} ms, bitwise equal; "
+                  f"output cosine to the bf16 MLP {cos:.6f}")
+        lin = L.QuartetLinear(QAT_D, QAT_H, rot_size=ROT, method="abs_max", device=dev)
+        with torch.no_grad():
+            lin.weight.copy_(w1)
+        lin.eval()
+        x = randn(64, QAT_D)
+        y, ms_c, ms_f = both_routes(
+            "abs-max QuartetLinear M=64", lambda: lin(x),
+            {"fused_linear_mx": 1, "quantize_mx": 1, "gemm_fp4_mx": 0},
+            {"fused_linear_mx": 0, "quantize_mx": 2, "gemm_fp4_mx": 1})
+        cos = cosine(y, x @ w1.T)
+        require(cos >= 0.95, f"phase 8 abs-max QuartetLinear: cosine {cos} to the bf16 linear")
+        print(f"phase 8 MX abs-max QuartetLinear eval {QAT_D}->{QAT_H} M=64 (alpha 1/9): "
+              f"composition {ms_c:.4f} ms, K16 {ms_f:.4f} ms, bitwise equal; cosine {cos:.6f}")
+        del mlp, lin, w1, w2
+
+        # NVFP4: Qwen3-8B's gate and down projections, fp4-stored as
+        # quantize_weight(fmt="nv") stores them; the activation's exact
+        # global scale and alpha = 1/(gsx*gs), as nv_linear forms them
+        for tag, (k, n) in (("gate", (QAT_D, QAT_H)), ("down", (QAT_H, QAT_D))):
+            w = randn(n, k, scale=k ** -0.5)
+            wq = L.quantize_weight(w, h=h, fmt="nv", weight_format="fp4")
+            for m in FL_NV_TOKENS:
+                x = randn(m, k)
+                gsx = L.nv_global_scale(L.rotated_amax(x, h))
+                alpha = 1.0 / (gsx * wq["gs"])
+                y, ms_c, ms_f = both_routes(
+                    f"NV {tag} M={m}",
+                    lambda: qt.fused_linear_nvf4(x, wq["wqt"], wq["wst"], h, gsx, alpha),
+                    {"fused_linear_nv": 1, "quantize_nv": 0, "gemm_fp4_nv": 0},
+                    {"fused_linear_nv": 0, "quantize_nv": 1, "gemm_fp4_nv": 1})
+                cos = cosine(y, x @ w.T)
+                require(cos >= 0.95, f"phase 8 NV {tag} M={m}: cosine {cos} to the bf16 linear")
+                print(f"phase 8 NV {tag} {k}->{n} M={m}: composition (K5 + K7) {ms_c:.4f} ms, "
+                      f"single kernel (K17) {ms_f:.4f} ms, bitwise equal; cosine to the bf16 "
+                      f"linear {cos:.6f}")
+    finally:
+        set_switch(old)
+    print(f"phase 8 in {time.perf_counter() - t0:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launch counts of the counted "
+          f"runs {total}")
+    for name in ("fused_linear_mx", "fused_linear_nv"):
+        require(total[name] > 0, f"kernel {name} was not launched by phase 8")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=36)
@@ -1182,6 +1418,7 @@ def main() -> int:
     compare_nv_kernels(torch, results)
     compare_qat_kernels(torch, results)
     compare_bwd_op_kernels(torch, results)
+    compare_fused_linear_kernels(torch, results)
 
     # phase 3
     t0 = time.perf_counter()
@@ -1194,7 +1431,7 @@ def main() -> int:
     print(f"phase 3 gpu tests ({time.perf_counter() - t0:.0f} s): {tail[0]}")
     require(test.returncode == 0, f"gpu tests failed:\n{test.stdout[-6000:]}\n{test.stderr[-2000:]}")
 
-    # phases 4-7; K1, K3 and K4 run on several paths, and their launches
+    # phases 4-8; K1, K3 and K4 run on several paths, and their launches
     # are the sum
     counts = serve(torch, args.layers, STEPS, args.profile)
     for name in MX_PATH:
@@ -1203,11 +1440,15 @@ def main() -> int:
     for name in NV_PATH:
         results[name]["launches"] += counts[name]
     # phase 6
-    counts, layer1 = train_qat(torch, args.profile, args.qat_lr)
+    counts, layer1, trained = train_qat(torch, args.profile, args.qat_lr)
     for name in QAT_PATH:
         results[name]["launches"] += counts[name]
     # phase 7: every kernel it launched counts
     for name, n in backward_ops(torch, layer1).items():
+        results[name]["launches"] += n
+    del layer1
+    # phase 8: every kernel its counted runs launched counts
+    for name, n in fused_linear_phase(torch, trained).items():
         results[name]["launches"] += n
 
     print(json.dumps({"kernels": list(results.values())}))

@@ -1,6 +1,7 @@
-"""qutlass_tpu_torch — the MXFP4 and NVFP4 W4A4 serving paths and the
-Quartet QAT training path of ``qutlass_tpu`` in PyTorch, with
-hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""qutlass_tpu_torch — the MXFP4 and NVFP4 W4A4 serving paths, the
+single-kernel quantized linear and the Quartet QAT training path of
+``qutlass_tpu`` in PyTorch, with hand-written CUDA kernels for the NVIDIA
+H100 (sm_90a).
 
 Same op names, argument conventions and stored bytes as the JAX package:
 
@@ -27,22 +28,25 @@ from .formats import codecs
 from .ops import cuda_ops as _ops
 from .ops import dispatch
 from .ops import validation as _val
-from .utils import (ceil_div, from_blocked, hadamard_matrix, identity_matrix,
-                    pad_to_block, round_up, to_blocked)
+from .utils import (ceil_div, dct_matrix, from_blocked, get_padded_shape_mx,
+                    get_padded_shape_nv, hadamard_matrix, identity_matrix, pad_to_block,
+                    round_up, to_blocked, to_blocked_swizzled)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "fusedQuantizeMx", "fusedQuantizeMxInt8", "fused_quantize_mx",
     "fused_quantize_mx_int8", "matmul_mxf4_bf16_tn", "matmul_mxf4_bf16_kmajor",
-    "matmul_mxf4_bf16_kmajor_codes", "matmul_ada_mxf4_bf16_tn",
+    "matmul_mxf4_bf16_kmajor_codes", "matmul_ada_mxf4_bf16_tn", "fused_linear_mxf4",
     "fusedQuantizeNv", "fusedQuantizeNvInt8", "fused_quantize_nv",
     "fused_quantize_nv_int8", "matmul_nvf4_bf16_tn", "matmul_nvf4_bf16_kmajor",
+    "fused_linear_nvf4",
     "matmul_mxf8_bf16_tn", "matmul_mxf8_bf16_nn",
     "backward_bf16_square_double_mxfp8", "backward_square_double_scaled",
     "mxfp4_transpose_mxfp8", "backward_t_bf16", "backward_qt_bf16",
     "mxfp4_transpose_scaled", "mxfp4_transpose_scaled_kmajor",
-    "to_blocked", "from_blocked", "pad_to_block", "hadamard_matrix",
+    "to_blocked", "to_blocked_swizzled", "from_blocked", "pad_to_block",
+    "get_padded_shape_mx", "get_padded_shape_nv", "hadamard_matrix", "dct_matrix",
     "identity_matrix",
 ]
 
@@ -214,6 +218,43 @@ def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
                                               _as_bytes(b_sft), alpha)
 
 
+def _mx_linear_alpha(alpha, method: str):
+    """alpha (None for 1) of the MX linear, times float32(1/9) in fp32 for
+    abs-max (the 3x of both operands).  A number stays a host number and
+    a tensor stays where it lies, so no route copies it to the card."""
+    alpha = 1.0 if alpha is None else alpha
+    if method == "quest":
+        return alpha
+    ninth = torch.tensor(1.0 / 9.0, dtype=torch.float32)
+    if isinstance(alpha, torch.Tensor):
+        return alpha.to(torch.float32) * ninth
+    return float(torch.tensor(alpha, dtype=torch.float32) * ninth)
+
+
+def fused_linear_mxf4(x, wqt, wst, h, alpha=None, *, method: str = "quest"):
+    """W4A4 MXFP4 linear against a pre-quantized K-major weight:
+    y [..., N] = bf16(dq(q(x H)) @ dq(w)^T * alpha), alpha (default 1)
+    times 1/9 for abs-max.
+
+    x: [..., K] bf16; wqt/wst from ``fusedQuantizeMx(w, h,
+    layout="kmajor")`` (packed u8 [K/2, N], e8m0 u8 [K/32, N]).  Runs as
+    the composition of K1 (K-major) and K4 unless the environment sets
+    ``QUTLASS_TPU_FUSED_LINEAR`` (to anything but "" or "0"), which runs
+    the single kernel K16; both give the same bits.
+    """
+    _check_method(method)
+    wqt, wst = _as_bytes(wqt), _as_bytes(wst)
+    al = _mx_linear_alpha(alpha, method)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if dispatch.fused_linear_single_kernel():      # K16's wrapper validates
+        y = _ops.fused_linear_mxf4(x2, wqt, wst, h, al, rot_size=h.shape[-1], method=method)
+    else:
+        rot = _val.check_fused_linear("fused_linear_mxf4", x, h, wqt, wst, 32)
+        xqt, xst = _ops.fused_quantize_mx(x2, h, rot_size=rot, method=method, layout="kmajor")
+        y = _ops.matmul_mxf4_bf16_kmajor(xqt, wqt, xst, wst, al)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
 def matmul_ada_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
     """Small-batch alias of :func:`matmul_mxf4_bf16_tn` (one kernel covers
     both regimes)."""
@@ -240,6 +281,31 @@ def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
     return _ops.matmul_nvf4_bf16_kmajor(_as_bytes(at), _as_bytes(bt),
                                         _as_bytes(a_sft), _as_bytes(b_sft),
                                         alpha)
+
+
+def fused_linear_nvf4(x, wqt, wst, h, global_scale, alpha=None, *,
+                      method: str = "abs_max"):
+    """W4A4 NVFP4 linear against a pre-quantized K-major weight: x [...,
+    K] bf16 quantized in 16-groups under the activation ``global_scale``,
+    wqt/wst from ``fusedQuantizeNv(w, h, gs_w, layout="kmajor")`` (packed
+    u8 [K/2, N], e4m3 u8 [K/16, N]); fold both global scales into
+    ``alpha`` (default 1).  The composition K5 (K-major) + K7, or under
+    ``QUTLASS_TPU_FUSED_LINEAR`` the single kernel K17: the same bits.
+    """
+    _check_method(method)
+    wqt, wst = _as_bytes(wqt), _as_bytes(wst)
+    al = 1.0 if alpha is None else alpha
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if dispatch.fused_linear_single_kernel():      # K17's wrapper validates
+        y = _ops.fused_linear_nvf4(x2, wqt, wst, h, global_scale, al, rot_size=h.shape[-1],
+                                   method=method)
+    else:
+        rot = _val.check_fused_linear("fused_linear_nvf4", x, h, wqt, wst, 16)
+        gs = _val.check_global_scale(global_scale, x.device)
+        xqt, xst = _ops.fused_quantize_nv(x2, h, gs, rot_size=rot, method=method,
+                                          layout="kmajor")
+        y = _ops.matmul_nvf4_bf16_kmajor(xqt, wqt, xst, wst, al)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def matmul_mxf8_bf16_tn(a, b, a_sf, b_sf, alpha):

@@ -13,44 +13,19 @@
 // exactly like the fp64 reference whenever the partial sums are exact,
 // which makes the result bit-exact against bf16(fp64 dequant matmul).
 //
-// Design: 64x64 output tiles, 256 threads of 4x4 outputs each.  Every
-// K step of 32 (one scale group) decodes a 32x64 slab of each operand
-// with the integer formula of codecs.e2m1_decode_scaled_bf16 (exact for
-// every scale byte, 0 included; the TPU's SWAR trick is not, and is not
-// used) into shared memory as fp32.  Operands and scales are read
-// through strides, so the row-major, K-major and unpacked-codes layouts
-// share the kernel.
-#include "common.cuh"
+// Design: 64x64 output tiles, 256 threads of 4x4 outputs each (the tile
+// of gemm_fp4_tile.cuh, shared with K16).  Every K step of 32 (one scale
+// group) decodes a 32x64 slab of each operand with the integer formula of
+// codecs.e2m1_decode_scaled_bf16 (exact for every scale byte, 0 included;
+// the TPU's SWAR trick is not, and is not used) into shared memory as
+// fp32.  Operands and scales are read through strides, so the row-major,
+// K-major and unpacked-codes layouts share the kernel.
+#include "gemm_fp4_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int THREADS = 256;
-constexpr int PAD = 65;  // slab row stride: conflict-free stores along k and along rows
-
-// decode the [rows r0.., k k0..] slab of a logical [R, K] operand (codes
-// packed two per byte when `packed`, element 2i in the low nibble) with
-// its scales s[r * s_r + g * s_g] into t[k][row]
-__device__ __forceinline__ void decode_tile(float (*t)[PAD], const uint8_t* __restrict__ q,
-                                            long long q_r, long long q_k, int packed,
-                                            const uint8_t* __restrict__ s, long long s_r,
-                                            long long s_g, int r0, int R, int k0, int K, int tid) {
-  const bool r_fast = q_r == 1;
-#pragma unroll
-  for (int j = 0; j < 64 * BK / THREADS; ++j) {
-    const int i = tid + j * THREADS;
-    const int rr = r_fast ? i % 64 : i / BK;
-    const int kk = r_fast ? i / 64 : i % BK;
-    const int r = r0 + rr, kg = k0 + kk;
-    float v = 0.f;
-    if (r < R && kg < K) {
-      const int code = packed ? (q[(long long)r * q_r + (long long)(kg >> 1) * q_k] >> ((kg & 1) * 4)) & 0xF
-                              : q[(long long)r * q_r + (long long)kg * q_k];
-      v = qt::e2m1_decode_scaled(code, s[(long long)r * s_r + (long long)(kg >> 5) * s_g]);
-    }
-    t[kk][rr] = v;
-  }
-}
+using namespace qt::tile;
+constexpr int BK = 32;  // one scale group
 
 __global__ void __launch_bounds__(THREADS)
 gemm_fp4_mx_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k, int a_packed,
@@ -65,37 +40,15 @@ gemm_fp4_mx_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k, 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
+  zero(acc);
   for (int k0 = 0; k0 < K; k0 += BK) {
-    decode_tile(As, a, a_m, a_k, a_packed, as, as_m, as_g, m0, M, k0, K, tid);
-    decode_tile(Bs, b, b_n, b_k, b_packed, bs, bs_n, bs_g, n0, N, k0, K, tid);
+    decode_mx<BK>(As, a, a_m, a_k, a_packed, as, as_m, as_g, m0, M, k0, K, tid);
+    decode_mx<BK>(Bs, b, b_n, b_k, b_packed, bs, bs_n, bs_g, n0, N, k0, K, tid);
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+    mx_accumulate(acc, As, Bs, BK, tx, ty);
     __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) c[(long long)m * N + n] = __float2bfloat16_rn(__fmul_rn(acc[i][j], alpha));
-    }
+  store(c, acc, alpha, m0, n0, M, N, tx, ty);
 }
 
 }  // namespace

@@ -22,45 +22,18 @@
 // rounded once to fp32 and scaled by alpha, is then bitwise the plain
 // version's (fp64 sum of exact products, rounded once).
 //
-// Tiles: 64x64 outputs, 256 threads of 4x4 outputs each.  Every K step
+// Tiles: 64x64 outputs, 256 threads of 4x4 outputs each (the tile of
+// gemm_fp4_tile.cuh, shared with K17).  Every K step
 // of 32 (two scale groups) decodes a 32x64 slab of each operand into
 // shared memory as fp32 e2m1 values, plus the slab's scales.  Operands
 // and scales are read through strides, so the row-major and K-major
 // layouts share the kernel.  alpha is read from device memory.
-#include "common.cuh"
+#include "gemm_fp4_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int THREADS = 256;
-constexpr int PAD = 65;  // slab row stride: conflict-free stores along k and along rows
-
-// decode the [rows r0.., k k0..] slab of a logical [R, K/2] packed operand
-// (element 2i in the low nibble) into t[k][row] and its two groups'
-// scales s[r * s_r + g * s_g] into ts[g][row]
-__device__ __forceinline__ void decode_tile(float (*t)[PAD], float (*ts)[BM],
-                                            const uint8_t* __restrict__ q, long long q_r,
-                                            long long q_k, const uint8_t* __restrict__ s,
-                                            long long s_r, long long s_g, int r0, int R, int k0,
-                                            int K, int tid) {
-  const bool r_fast = q_r == 1;
-#pragma unroll
-  for (int j = 0; j < BM * BK / THREADS; ++j) {
-    const int i = tid + j * THREADS;
-    const int rr = r_fast ? i % BM : i / BK;
-    const int kk = r_fast ? i / BM : i % BK;
-    const int r = r0 + rr, kg = k0 + kk;
-    float v = 0.f;
-    if (r < R && kg < K)
-      v = qt::e2m1_value((q[(long long)r * q_r + (long long)(kg >> 1) * q_k] >> ((kg & 1) * 4)) & 0xF);
-    t[kk][rr] = v;
-  }
-  if (tid < 2 * BM) {
-    const int g = tid / BM, rr = tid % BM, r = r0 + rr, kg = k0 + g * 16;
-    ts[g][rr] = (r < R && kg < K) ? qt::e4m3_decode(s[(long long)r * s_r + (long long)(kg >> 4) * s_g])
-                                  : 0.f;
-  }
-}
+using namespace qt::tile;
+constexpr int BK = 32;  // two scale groups
 
 __global__ void __launch_bounds__(THREADS)
 gemm_fp4_nv_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k,
@@ -71,61 +44,23 @@ gemm_fp4_nv_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k,
                    int N, int K) {
   __shared__ float As[BK][PAD];
   __shared__ float Bs[BK][PAD];
-  __shared__ float Sa[2][BM];
-  __shared__ float Sb[2][BN];
+  __shared__ float Sa[BK / 16][BM];
+  __shared__ float Sb[BK / 16][BN];
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
   double acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
-
+  zero(acc);
   for (int k0 = 0; k0 < K; k0 += BK) {
-    decode_tile(As, Sa, a, a_m, a_k, as, as_m, as_g, m0, M, k0, K, tid);
-    decode_tile(Bs, Sb, b, b_n, b_k, bs, bs_n, bs_g, n0, N, k0, K, tid);
+    decode_nv<BK>(As, Sa, a, a_m, a_k, as, as_m, as_g, m0, M, k0, K, tid);
+    decode_nv<BK>(Bs, Sb, b, b_n, b_k, bs, bs_n, bs_g, n0, N, k0, K, tid);
     __syncthreads();
 #pragma unroll
-    for (int g = 0; g < 2; ++g) {
-      float p[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) p[i][j] = 0.f;
-#pragma unroll
-      for (int kk = g * 16; kk < g * 16 + 16; ++kk) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) p[i][j] = fmaf(av[i], bv[j], p[i][j]);  // exact
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float sa = Sa[g][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] += (double)__fmul_rn(__fmul_rn(p[i][j], sa), Sb[g][tx + 16 * j]);  // exact
-      }
-    }
+    for (int g = 0; g < BK / 16; ++g) nv_accumulate_group(acc, As, Bs, Sa, Sb, g, tx, ty);
     __syncthreads();
   }
-
-  const float alpha = *alpha_ptr;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N)
-        c[(long long)m * N + n] = __float2bfloat16_rn(__fmul_rn(__double2float_rn(acc[i][j]), alpha));
-    }
+  store(c, acc, *alpha_ptr, m0, n0, M, N, tx, ty);
 }
 
 }  // namespace

@@ -1,0 +1,152 @@
+// The 64x64 output tile of the fp4 GEMMs, shared by K4 (gemm_fp4_mx.cu),
+// K7 (gemm_fp4_nv.cu) and the single-kernel linears K16 / K17
+// (fused_linear.cu): the slab decoders, the accumulation steps and the
+// epilogue.  One copy of each keeps the four kernels' sums, and so their
+// bits, the same: K16 equals K1 + K4 and K17 equals K5 + K7 because they
+// run this code on the same decoded values.
+//
+// 256 threads hold 4x4 outputs each: thread (tx, ty) = (tid % 16, tid /
+// 16) owns rows ty + 16 i and columns tx + 16 j.  A slab is BK columns of
+// K decoded into shared memory as fp32, t[k][row], for both operands.
+#pragma once
+
+#include "common.cuh"
+
+namespace qt {
+namespace tile {
+
+constexpr int BM = 64, BN = 64;
+constexpr int THREADS = 256;
+constexpr int PAD = 65;  // slab row stride: conflict-free stores along k and along rows
+
+// decode the [rows r0.., k k0..] slab, BK wide, of a logical [R, K] MXFP4
+// operand (codes packed two per byte when `packed`, element 2i in the
+// low nibble) with its e8m0 scales s[r * s_r + g * s_g] into t[k][row]:
+// code times scale, exact in bf16 (e2m1_decode_scaled); zero beyond R and K
+template <int BK>
+__device__ __forceinline__ void decode_mx(float (*t)[PAD], const uint8_t* __restrict__ q,
+                                          long long q_r, long long q_k, int packed,
+                                          const uint8_t* __restrict__ s, long long s_r,
+                                          long long s_g, int r0, int R, int k0, int K, int tid) {
+  const bool r_fast = q_r == 1;
+#pragma unroll (BK == 32 ? 8 : 4)  // whole for 32-wide slabs, 4 of 32 steps for 128
+  for (int j = 0; j < BM * BK / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    const int rr = r_fast ? i % BM : i / BK;
+    const int kk = r_fast ? i / BM : i % BK;
+    const int r = r0 + rr, kg = k0 + kk;
+    float v = 0.f;
+    if (r < R && kg < K) {
+      const int code = packed ? (q[(long long)r * q_r + (long long)(kg >> 1) * q_k] >> ((kg & 1) * 4)) & 0xF
+                              : q[(long long)r * q_r + (long long)kg * q_k];
+      v = e2m1_decode_scaled(code, s[(long long)r * s_r + (long long)(kg >> 5) * s_g]);
+    }
+    t[kk][rr] = v;
+  }
+}
+
+// decode the [rows r0.., k k0..] slab, BK wide, of a logical [R, K/2]
+// packed NVFP4 operand into t[k][row] as e2m1 values, and its BK/16
+// groups' e4m3 scales s[r * s_r + g * s_g] into ts[g][row]; zero beyond R
+// and K
+template <int BK>
+__device__ __forceinline__ void decode_nv(float (*t)[PAD], float (*ts)[BM],
+                                          const uint8_t* __restrict__ q, long long q_r,
+                                          long long q_k, const uint8_t* __restrict__ s,
+                                          long long s_r, long long s_g, int r0, int R, int k0,
+                                          int K, int tid) {
+  const bool r_fast = q_r == 1;
+#pragma unroll (BK == 32 ? 8 : 4)  // whole for 32-wide slabs, 4 of 32 steps for 128
+  for (int j = 0; j < BM * BK / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    const int rr = r_fast ? i % BM : i / BK;
+    const int kk = r_fast ? i / BM : i % BK;
+    const int r = r0 + rr, kg = k0 + kk;
+    float v = 0.f;
+    if (r < R && kg < K)
+      v = e2m1_value((q[(long long)r * q_r + (long long)(kg >> 1) * q_k] >> ((kg & 1) * 4)) & 0xF);
+    t[kk][rr] = v;
+  }
+  for (int i = tid; i < BK / 16 * BM; i += THREADS) {
+    const int g = i / BM, rr = i % BM, r = r0 + rr, kg = k0 + g * 16;
+    ts[g][rr] = (r < R && kg < K) ? e4m3_decode(s[(long long)r * s_r + (long long)(kg >> 4) * s_g])
+                                  : 0.f;
+  }
+}
+
+template <typename Acc>
+__device__ __forceinline__ void zero(Acc (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+}
+
+// the MX sum over slab columns 0..kw-1: one fmaf per k, k ascending.  The
+// products of two exact bf16 values are exact in fp32, so the sum rounds
+// like the fp64 reference while its partial sums are exact.
+__device__ __forceinline__ void mx_accumulate(float (&acc)[4][4], const float (*a)[PAD],
+                                              const float (*b)[PAD], int kw, int tx, int ty) {
+#pragma unroll 8
+  for (int kk = 0; kk < kw; ++kk) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[kk][ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = b[kk][tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// the NV step for 16-group g of the slab: the fp32 sum of its 16 e2m1
+// products (multiples of 1/4 up to 36: exact), times both e4m3 scales
+// (12 + 4 + 4 significant bits: exact), added into fp64, which stays
+// exact while a row pair's group terms span fewer than ~40 binades
+__device__ __forceinline__ void nv_accumulate_group(double (&acc)[4][4], const float (*a)[PAD],
+                                                    const float (*b)[PAD], const float (*sa)[BM],
+                                                    const float (*sb)[BN], int g, int tx, int ty) {
+  float p[4][4];
+  zero(p);
+#pragma unroll
+  for (int kk = g * 16; kk < g * 16 + 16; ++kk) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[kk][ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = b[kk][tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) p[i][j] = fmaf(av[i], bv[j], p[i][j]);  // exact
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float s = sa[g][ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[i][j] += (double)__fmul_rn(__fmul_rn(p[i][j], s), sb[g][tx + 16 * j]);  // exact
+  }
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(double v) { return __double2float_rn(v); }
+
+// c[m, n] = bf16(float(acc) * alpha) for the tile's outputs below M and N:
+// the fp64 NV sum is rounded once to fp32 first
+template <typename Acc>
+__device__ __forceinline__ void store(__nv_bfloat16* __restrict__ c, const Acc (&acc)[4][4],
+                                      float alpha, int m0, int n0, int M, int N, int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      if (m < M && n < N) c[(long long)m * N + n] = __float2bfloat16_rn(__fmul_rn(to_f32(acc[i][j]), alpha));
+    }
+}
+
+}  // namespace tile
+}  // namespace qt

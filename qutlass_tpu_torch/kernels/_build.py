@@ -25,7 +25,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("quantize_mx.cu", "quantize_mx_int8.cu", "gemm_int8_rank1.cu",
            "gemm_fp4_mx.cu", "quantize_nv.cu", "quantize_nv_int8.cu",
            "gemm_fp4_nv.cu", "square_double.cu", "transpose_mxfp8.cu",
-           "gemm_fp8_mx.cu", "backward_quant.cu")
+           "gemm_fp8_mx.cu", "backward_quant.cu", "fused_linear.cu")
 # no --use_fast_math: the scale math must round like the fp32 reference;
 # --fmad=false keeps nvcc from contracting a*b+c in it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,6 +51,10 @@ _SIGNATURES = {
                        _P, _P, _I, _I, _I, _P],
     "qt_backward_t": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "qt_backward_qt": [_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qt_fused_linear_mx": [_P, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _I, _I, _I, _I, _I,
+                           _P],
+    "qt_fused_linear_nv": [_P, _P, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _I, _I, _I, _I,
+                           _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -69,8 +73,8 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in ("common.cuh",) + SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / src for src in SOURCES]:
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -406,8 +406,9 @@ class QuartetLinear(nn.Module):
     """W4A4 MXFP4 linear for quantization-aware training (counterpart of
     the JAX package's ``QuartetDense``): a bf16 weight [N, K] parameter
     and a ``rot_size`` Hadamard rotation.  In training mode it runs
-    :func:`quartet_linear`; in eval mode the JAX ``fused_linear_mxf4``
-    composition, K1 K-major on both operands, then the fp4 GEMM K4 (alpha
+    :func:`quartet_linear`; in eval mode, as ``QuartetDense``, the weight
+    quantized K-major by K1 on every call and ``fused_linear_mxf4`` (K1 +
+    K4, or the single kernel K16 under ``QUTLASS_TPU_FUSED_LINEAR``; alpha
     1/9 for abs-max).  The weight starts normal with std K^-0.5, drawn
     from ``generator``; it lives on the card unless ``device`` says
     otherwise."""
@@ -437,9 +438,7 @@ class QuartetLinear(nn.Module):
         else:
             w = self.weight.detach()
             wqt, wst = q.fusedQuantizeMx(w, self.h, method=self.method, layout="kmajor")
-            xqt, xst = q.fusedQuantizeMx(x2.detach(), self.h, method=self.method,
-                                         layout="kmajor")
-            y = q.matmul_mxf4_bf16_kmajor(xqt, wqt, xst, wst, _alpha(self.method))
+            y = q.fused_linear_mxf4(x2.detach(), wqt, wst, self.h, method=self.method)
         return y.reshape(*x.shape[:-1], n)
 
 

@@ -8,6 +8,7 @@ shape is routed around a kernel.
 from __future__ import annotations
 
 from ..kernels import backward as _bwd
+from ..kernels import fused_linear as _fl
 from ..kernels.gemm import gemm_fp4_mx, gemm_fp4_nv, gemm_fp8_mx
 from ..kernels.quantize import (quantize_mx, quantize_mx_int8, quantize_nv,
                                 quantize_nv_int8)
@@ -37,6 +38,10 @@ def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
     return gemm_fp4_mx(at, bt, a_sft, b_sft, alpha, layout="kmajor_codes")
 
 
+def fused_linear_mxf4(x, wqt, wst, h, alpha, *, rot_size: int, method: str = "quest"):
+    return _fl.fused_linear_mx(x, wqt, wst, h, alpha, rot_size=rot_size, method=method)
+
+
 def fused_quantize_nv(a, h, global_scale, *, rot_size: int,
                       method: str = "abs_max", layout: str = "rowmajor"):
     return quantize_nv(a, h, global_scale, rot_size=rot_size, method=method,
@@ -55,6 +60,12 @@ def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha):
 
 def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
     return gemm_fp4_nv(at, bt, a_sft, b_sft, alpha, layout="kmajor")
+
+
+def fused_linear_nvf4(x, wqt, wst, h, global_scale, alpha, *, rot_size: int,
+                      method: str = "abs_max"):
+    return _fl.fused_linear_nv(x, wqt, wst, h, global_scale, alpha, rot_size=rot_size,
+                               method=method)
 
 
 def matmul_mxf8_bf16_tn(a, b, a_sf, b_sf, alpha):

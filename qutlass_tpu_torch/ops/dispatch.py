@@ -9,8 +9,13 @@ switch that sends CUDA tensors to a plain version.
 ``launch_counts`` maps each kernel's name to the number of times its
 wrapper launched it; only a kernel launch adds to it, so a run can show
 which kernels its main path went through.
+
+``fused_linear_single_kernel`` is the JAX package's switch between the
+two bitwise-identical routes of ``fused_linear_mxf4`` / ``_nvf4``.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -18,7 +23,7 @@ KERNELS = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1",
            "gemm_fp4_mx", "quantize_nv", "quantize_nv_int8", "gemm_fp4_nv",
            "square_double_scaled", "square_double_mxfp8", "mxfp4_transpose_mxfp8",
            "gemm_fp8_mx", "backward_t_bf16", "backward_qt_bf16", "mxfp4_transpose_scaled",
-           "mxfp4_transpose_scaled_kmajor")
+           "mxfp4_transpose_scaled_kmajor", "fused_linear_mx", "fused_linear_nv")
 
 launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -30,6 +35,14 @@ def reset_launch_counts() -> None:
 
 def note_launch(name: str) -> None:
     launch_counts[name] += 1
+
+
+def fused_linear_single_kernel() -> bool:
+    """``QUTLASS_TPU_FUSED_LINEAR``, read at every call: unset, "" or "0"
+    runs ``fused_linear_*`` as the composition of the quantize and GEMM
+    kernels (K1 + K4, K5 + K7), anything else as the single kernel K16 /
+    K17.  On the CPU it picks between the same routes' plain versions."""
+    return os.environ.get("QUTLASS_TPU_FUSED_LINEAR", "") not in ("", "0")
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -244,6 +244,81 @@ def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
 
 
 # ---------------------------------------------------------------------------
+# the single-kernel quantized linear (plain versions of kernels K16, K17)
+# ---------------------------------------------------------------------------
+
+def rtne_e2m1_values(q: torch.Tensor) -> torch.Tensor:
+    """RTNE of fp32 ``q`` onto the e2m1 grid, returned as grid values
+    (saturating to +-6, ties to even); NaN gives +0, as its code does."""
+    nan = torch.isnan(q)
+    s = torch.where(nan, 0.0, torch.sign(q))
+    a = torch.where(nan, 0.0, torch.clamp(q.abs(), max=6.0))
+    v1 = torch.round(a * 2.0) * 0.5
+    v2 = torch.round(a)
+    v3 = torch.round(a * 0.5) * 2.0
+    return s * torch.where(a <= 2.0, v1, torch.where(a <= 4.0, v2, v3))
+
+
+def quantize_dequant_mx(x: torch.Tensor, h: torch.Tensor, rot_size: int,
+                        method: str) -> torch.Tensor:
+    """bf16 [M, K] -> the MXFP4-quantized-then-dequantized activation,
+    bf16 [M, K]: rotate, scale each 32-group, round onto the e2m1 grid
+    and rebuild ``grid value x scale`` (exact in bf16).  For abs-max the
+    3x stays in (alpha carries 1/9)."""
+    m, k = x.shape
+    g = rotate(x, h, rot_size).reshape(m, k // 32, 32)
+    if method == "quest":
+        scale = C.mx_scale_quest(g.sum(-1), (g * g).sum(-1), 32.0)
+    else:
+        scale = C.mx_scale_absmax(g.abs().amax(-1))
+    scale_f, byte = C.pow2_floor_e8m0(scale)
+    q = g * C.e8m0_recip_f32(byte)[..., None]
+    if method != "quest":
+        q = q * 3.0
+    return (rtne_e2m1_values(q) * scale_f[..., None]).to(torch.bfloat16).reshape(m, k)
+
+
+def quantize_dequant_nv(x: torch.Tensor, h: torch.Tensor, global_scale,
+                        rot_size: int, method: str) -> torch.Tensor:
+    """bf16 [M, K] -> the NVFP4-quantized activation as ``grid value x
+    e4m3 scale``, bf16 [M, K] (exact: a 2-bit times a 4-bit
+    significand); the global scale stays in alpha."""
+    m, k = x.shape
+    g = rotate(x, h, rot_size).reshape(m, k // 16, 16)
+    if method == "abs_max":
+        byte, mul = C.nv_absmax_scale_bytes(g.abs().amax(-1), as_alpha(global_scale, x.device))
+    else:
+        byte, mul = C.nv_quest_scale_bytes(g.sum(-1), (g * g).sum(-1))
+    vals = rtne_e2m1_values(g * mul[..., None])
+    return (vals * C.e4m3_decode_f32(byte)[..., None]).to(torch.bfloat16).reshape(m, k)
+
+
+def _linear_out(xdq: torch.Tensor, wdq: torch.Tensor, alpha) -> torch.Tensor:
+    """bf16(fp32(fp64 sum of the exact products) * alpha), as K4 and K7's
+    plain versions round."""
+    acc = (xdq.to(torch.float64) @ wdq.to(torch.float64).T).to(torch.float32)
+    return (acc * as_alpha(alpha, acc.device)).to(torch.bfloat16)
+
+
+def fused_linear_mxf4_plain(x, wqt, wst, h, alpha, *, rot_size: int, method: str):
+    """Plain version of kernel K16: y [M, N] = bf16(dq(q(x H)) @ dq(w)^T
+    * alpha) for x bf16 [M, K] and a K-major MXFP4 weight (packed [K/2,
+    N], e8m0 [K/32, N]).  ``alpha`` is applied as given: the caller folds
+    the abs-max 1/9 into it."""
+    wdq = dequant_fp4(unpack_codes(wqt.T), wst.T)
+    return _linear_out(quantize_dequant_mx(x, h, rot_size, method), wdq, alpha)
+
+
+def fused_linear_nvf4_plain(x, wqt, wst, h, global_scale, alpha, *, rot_size: int,
+                            method: str):
+    """Plain version of kernel K17: the NVFP4 twin of
+    :func:`fused_linear_mxf4_plain` (e4m3 [K/16, N] weight scales; the
+    activation quantized under ``global_scale``)."""
+    wdq = dequant_nvfp4(unpack_codes(wqt.T), wst.T)
+    return _linear_out(quantize_dequant_nv(x, h, global_scale, rot_size, method), wdq, alpha)
+
+
+# ---------------------------------------------------------------------------
 # int8 GEMM + rank-1 epilogue (plain version of kernel K3)
 # ---------------------------------------------------------------------------
 

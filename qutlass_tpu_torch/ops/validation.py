@@ -89,10 +89,34 @@ def check_backward_rows(name: str, shape, h: torch.Tensor) -> None:
 def check_kmajor_mx(name: str, qt: torch.Tensor, st: torch.Tensor) -> None:
     """A K-major MXFP4 operand: packed [K/2, rows] and e8m0 [K/32, rows],
     K a multiple of 32."""
+    _check_kmajor(name, qt, st, 32)
+
+
+def check_kmajor_nv(name: str, qt: torch.Tensor, st: torch.Tensor) -> None:
+    """A K-major NVFP4 operand: packed [K/2, rows] and e4m3 [K/16, rows],
+    K a multiple of 16."""
+    _check_kmajor(name, qt, st, 16)
+
+
+def _check_kmajor(name: str, qt: torch.Tensor, st: torch.Tensor, gs: int) -> None:
     if qt.ndim != 2 or st.ndim != 2:
         raise ValueError(f"{name}: operands must be 2-D, got {tuple(qt.shape)} / "
                          f"{tuple(st.shape)}")
     k, rows = qt.shape[0] * 2, qt.shape[1]
-    check_group_dim(name, k, 32)
-    if tuple(st.shape) != (k // 32, rows):
-        raise ValueError(f"{name}: scales {tuple(st.shape)} do not match [{k // 32}, {rows}]")
+    check_group_dim(name, k, gs)
+    if tuple(st.shape) != (k // gs, rows):
+        raise ValueError(f"{name}: scales {tuple(st.shape)} do not match [{k // gs}, {rows}]")
+
+
+def check_fused_linear(name: str, x: torch.Tensor, h: torch.Tensor, wqt: torch.Tensor,
+                       wst: torch.Tensor, gs: int) -> int:
+    """The single-kernel linear: x bf16 [..., K], a rotation that divides
+    K, and a K-major weight (packed [K/2, N], scales [K/gs, N]) of the same
+    K.  Returns the rotation size."""
+    check_bf16("x", x)
+    k = x.shape[-1]
+    rot = check_rotation(h, k)
+    _check_kmajor(name, wqt, wst, gs)
+    if wqt.shape[0] * 2 != k:
+        raise ValueError(f"{name}: the weight's K ({wqt.shape[0] * 2}) differs from x's ({k})")
+    return rot

@@ -19,6 +19,19 @@ def round_up(a: int, b: int) -> int:
     return ceil_div(a, b) * b
 
 
+def get_padded_shape_mx(a: torch.Tensor) -> tuple[int, int]:
+    """Padded e8m0 scale-buffer shape of an MX quantize of ``a``: rows to
+    a multiple of 128, K/32 columns to a multiple of 4 (reference
+    utils.py:140-147)."""
+    return round_up(a.numel() // a.shape[-1], 128), round_up(a.shape[-1] // 32, 4)
+
+
+def get_padded_shape_nv(a: torch.Tensor) -> tuple[int, int]:
+    """Padded e4m3 scale-buffer shape of an NV quantize of ``a`` (K/16
+    columns)."""
+    return round_up(a.numel() // a.shape[-1], 128), round_up(a.shape[-1] // 16, 4)
+
+
 def to_blocked(scales: torch.Tensor, use_triton_kernel: bool = False) -> torch.Tensor:
     """Scale layout transform: a flatten of the (already padded) scale
     matrix.  ``use_triton_kernel`` is accepted for signature parity and
@@ -30,6 +43,17 @@ def to_blocked(scales: torch.Tensor, use_triton_kernel: bool = False) -> torch.T
 def from_blocked(flat: torch.Tensor, k: int, gs: int) -> torch.Tensor:
     """Inverse of :func:`to_blocked`: recover the padded 2-D scale matrix."""
     return flat.reshape(-1, round_up(k // gs, 4))
+
+
+def to_blocked_swizzled(scales: torch.Tensor) -> torch.Tensor:
+    """The cuBLAS 128x4 block-swizzled scale layout of a padded [H, W]
+    matrix (H a multiple of 128, W of 4), flattened, for export to other
+    GPU stacks (reference utils.py:160-193)."""
+    rows, cols = scales.shape
+    if rows % 128 or cols % 4:
+        raise ValueError(f"pad the scales to [x128, x4] first, got {tuple(scales.shape)}")
+    b = scales.reshape(rows // 128, 128, cols // 4, 4).permute(0, 2, 1, 3)
+    return b.reshape(-1, 4, 32, 4).permute(0, 2, 1, 3).reshape(-1)
 
 
 def pad_to_block(x: torch.Tensor, dims, blocksize: int) -> torch.Tensor:
@@ -65,6 +89,18 @@ def hadamard_matrix(n: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
     while h.shape[0] < n:
         h = np.block([[h, h], [h, -h]])
     return torch.tensor(h * n ** -0.5, dtype=dtype, device=resolve_device(device))
+
+
+def dct_matrix(n: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """Orthonormal DCT-II rotation: row i, column j is ``c_i * cos(pi *
+    (2j + 1) * i / (2n))`` with ``c_0 = sqrt(1/n)``, ``c_i = sqrt(2/n)``
+    (computed in fp64, on the card unless ``device`` says otherwise)."""
+    i = np.arange(n)[:, None]
+    j = np.arange(n)[None, :]
+    m = np.cos(np.pi * (2 * j + 1) * i / (2 * n))
+    m[0] *= np.sqrt(1.0 / n)
+    m[1:] *= np.sqrt(2.0 / n)
+    return torch.tensor(m, dtype=dtype, device=resolve_device(device))
 
 
 def identity_matrix(n: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:

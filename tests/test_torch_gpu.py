@@ -15,7 +15,10 @@ backward kernels K8-K10, K14 and K15 bitwise (a NaN's bf16 bits aside);
 K12 and K13 scale bytes exact and codes within a 1e-4 mismatch rate (the
 rotation's fp32 sums in another order than cuBLAS's); one
 quartet_linear step on the card within cosine 0.9999 of the CPU step
-(K1's codes and cuBLAS's sums differ from the CPU's in order).
+(K1's codes and cuBLAS's sums differ from the CPU's in order); K16 and
+K17 bitwise against the composition on the card (K1 + K4, K5 + K7) and
+against their plain versions in every row whose quantized activation
+the plain quantizer gives bit for bit.
 """
 import pytest
 import torch
@@ -23,6 +26,7 @@ import torch
 import qutlass_tpu_torch as qt
 from qutlass_tpu_torch import models as M
 from qutlass_tpu_torch.kernels import backward as B
+from qutlass_tpu_torch.kernels import fused_linear as FL
 from qutlass_tpu_torch.kernels import gemm as G
 from qutlass_tpu_torch.kernels import quantize as Q
 from qutlass_tpu_torch.ops import dispatch
@@ -631,3 +635,124 @@ def test_backward_ops_public_api_on_the_card(dev):
     for name in ("backward_t_bf16", "backward_qt_bf16", "mxfp4_transpose_scaled",
                  "mxfp4_transpose_scaled_kmajor"):
         assert dispatch.launch_counts[name] == 1, name
+
+
+# ---------------------------------------------------------------------------
+# K16 / K17: the single-kernel quantized linear
+# ---------------------------------------------------------------------------
+
+def _fl_operands(dev, fmt, method, m, n, k, rot, seed):
+    """x [m, k], the rotation, the K-major weight (K1 or K5 on the card),
+    alpha 0.7 and the NV activation global scale, on the card."""
+    x = _x(dev, m, k, seed=seed, scale=2.0)
+    h = qt.hadamard_matrix(rot, device=dev)
+    w = _x(dev, n, k, seed=seed + 1, scale=k ** -0.5)
+    if fmt == "mx":
+        wq = Q.quantize_mx(w, h, rot_size=rot, method=method, layout="kmajor")
+    else:
+        wq = Q.quantize_nv(w, h, torch.tensor(300.0, device=dev), rot_size=rot,
+                           method=method, layout="kmajor")
+    return x, h, wq, torch.tensor([0.7], device=dev), torch.tensor(37.5, device=dev)
+
+
+def _fl_routes(fmt, method, x, h, wq, al, gs, rot):
+    """(K16/K17, the composition K1 + K4 / K5 + K7, the plain version, and
+    the rows whose quantized activation bytes equal the plain quantizer's)."""
+    (wqt, wst), kw = wq, dict(rot_size=rot, method=method)
+    if fmt == "mx":
+        y = FL.fused_linear_mx(x, wqt, wst, h, al, **kw)
+        xq = Q.quantize_mx(x, h, layout="kmajor", **kw)
+        comp = G.gemm_fp4_mx(xq[0], wqt, xq[1], wst, al, layout="kmajor")
+        plain = FL.fused_linear_mx_plain(x, wqt, wst, h, al, **kw)
+        xp = Q.quantize_mx_plain(x, h, layout="kmajor", **kw)
+    else:
+        y = FL.fused_linear_nv(x, wqt, wst, h, gs, al, **kw)
+        xq = Q.quantize_nv(x, h, gs, layout="kmajor", **kw)
+        comp = G.gemm_fp4_nv(xq[0], wqt, xq[1], wst, al, layout="kmajor")
+        plain = FL.fused_linear_nv_plain(x, wqt, wst, h, gs, al, **kw)
+        xp = Q.quantize_nv_plain(x, h, gs, layout="kmajor", **kw)
+    rows = (xq[0] == xp[0]).all(0) & (xq[1] == xp[1]).all(0)
+    return y, comp, plain, rows
+
+
+@pytest.mark.parametrize("m,n,k,rot", [(1, 96, 96, 32), (65, 70, 96, 16), (3, 200, 4096, 16),
+                                       (65, 130, 4096, 64), (1, 1000, 12288, 128),
+                                       (3, 70, 12288, 32)])
+@pytest.mark.parametrize("method", ["quest", "abs_max"])
+@pytest.mark.parametrize("fmt", ["mx", "nv"])
+def test_fused_linear_kernels(dev, fmt, method, m, n, k, rot):
+    """K16 / K17 bitwise against the composition on the card, and against
+    the plain version in every row whose quantized activation the plain
+    quantizer gives bit for bit (K1 / K5 sum the rotation in another
+    order than cuBLAS: at most one such row may differ here)."""
+    x, h, wq, al, gs = _fl_operands(dev, fmt, method, m, n, k, rot, seed=20)
+    y, comp, plain, rows = _fl_routes(fmt, method, x, h, wq, al, gs, rot)
+    torch.cuda.synchronize()
+    assert tuple(y.shape) == (m, n) and y.dtype == torch.bfloat16
+    assert _same_or_nan(y, comp)
+    assert int((~rows).sum()) <= 1
+    assert _same_or_nan(y[rows], plain[rows])
+
+
+def test_fused_linear_kernels_nan_and_zero_rows(dev):
+    """A NaN row and a zero row: bitwise the composition and the plain
+    version in both formats and methods."""
+    for fmt in ("mx", "nv"):
+        for method in ("quest", "abs_max"):
+            x, h, wq, al, gs = _fl_operands(dev, fmt, method, 9, 96, 256, 32, seed=21)
+            x[2], x[5] = float("nan"), 0.0
+            y, comp, plain, rows = _fl_routes(fmt, method, x, h, wq, al, gs, 32)
+            torch.cuda.synchronize()
+            assert _same_or_nan(y, comp) and _same_or_nan(y[rows], plain[rows])
+            assert bool((y[5] == 0).all()) and bool(rows[5])
+
+
+def test_fused_linear_kernels_refuse_what_they_cannot_take(dev):
+    """A CUDA call the kernel cannot take raises, launches nothing and does
+    not fall back to the plain version."""
+    x, h, (wqt, wst), al, gs = _fl_operands(dev, "mx", "quest", 8, 64, 256, 32, seed=22)
+    dispatch.reset_launch_counts()
+    bad = [lambda: FL.fused_linear_mx(x.T.contiguous().T, wqt, wst, h, al, rot_size=32,
+                                      method="quest"),               # x not contiguous
+           lambda: FL.fused_linear_mx(x[:, :128].contiguous(), wqt, wst, h, al, rot_size=32,
+                                      method="quest"),               # K differs
+           lambda: FL.fused_linear_mx(x.float(), wqt, wst, h, al, rot_size=32,
+                                      method="quest"),               # not bf16
+           lambda: FL.fused_linear_mx(x, wqt, wst[:4], h, al, rot_size=32,
+                                      method="quest"),               # scales [K/32, N]
+           lambda: FL.fused_linear_nv(x, wqt, wst, h, gs, al, rot_size=32,
+                                      method="abs_max"),             # MX scales to K17
+           lambda: FL.fused_linear_mx(x, wqt, wst, h, al, rot_size=16, method="quest")]
+    for fn in bad:
+        with pytest.raises((TypeError, ValueError)):
+            fn()
+    assert dispatch.launch_counts["fused_linear_mx"] == dispatch.launch_counts["fused_linear_nv"] == 0
+
+
+def test_fused_linear_switch_moves_the_counters(dev, monkeypatch):
+    """The public ops on the card: unset the composition's kernels launch,
+    under QUTLASS_TPU_FUSED_LINEAR=1 only K16 / K17, with the same bits; a
+    QuartetLinear in eval mode follows the switch."""
+    out = {}
+    for switch in ("", "1"):
+        monkeypatch.setenv("QUTLASS_TPU_FUSED_LINEAR", switch)
+        x, h, (wqt, wst), _, _ = _fl_operands(dev, "mx", "abs_max", 4, 96, 512, 32, seed=23)
+        _, _, (nqt, nst), al, gs = _fl_operands(dev, "nv", "abs_max", 4, 96, 512, 32, seed=23)
+        lin = L.QuartetLinear(512, 96, rot_size=32, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(0)).eval()
+        dispatch.reset_launch_counts()
+        with torch.no_grad():
+            out[switch] = (qt.fused_linear_mxf4(x.reshape(2, 2, 512), wqt, wst, h, al,
+                                                method="abs_max"),
+                           qt.fused_linear_nvf4(x, nqt, nst, h, gs, al), lin(x))
+        torch.cuda.synchronize()
+        c = dispatch.launch_counts
+        single = switch == "1"
+        assert c["fused_linear_mx"] == (2 if single else 0)
+        assert c["fused_linear_nv"] == (1 if single else 0)
+        assert c["gemm_fp4_mx"] == (0 if single else 2) and c["gemm_fp4_nv"] == (0 if single else 1)
+        assert c["quantize_mx"] == (1 if single else 3)            # the layer's weight, and x
+        assert c["quantize_nv"] == (0 if single else 1)
+    assert out[""][0].shape == (2, 2, 96)
+    for a, b in zip(out[""], out["1"]):
+        assert _same_or_nan(a, b)

@@ -8,7 +8,11 @@ Phases, in order; any failure exits non-zero before the result lines:
   2. hold each kernel against its plain PyTorch version at the main
      paths' shapes and time both (CUDA events after warm-up), beside
      the card's bound for the same work and, where one PyTorch call
-     computes the same function, that call's time; the QAT kernels
+     computes the same function, that call's time; K3 in every operand
+     order at the decode, prefill and QAT shapes, in bf16 and fp32,
+     against its targets (bf16 ``torch.matmul`` at M <= 16,
+     ``torch._int_mm`` above) and summed over a decode step, a prefill
+     and a QAT step; the QAT kernels
      (K8-K11, K3 in the int8 backward's orders, and the training
      forward's K1 with the clip mask and K3) at the training shapes of
      phase 6, the backward-operand kernels K12-K15 at phase 7's, and the
@@ -203,6 +207,95 @@ def gemm_bound(m, n, k, a_bytes, b_bytes, kind):
     return bound(a_bytes + b_bytes + 2 * m * n, 2 * m * n * k, kind)
 
 
+def _check_k3(torch, G, a_mk, b_nk, sa, sb, alpha, fn, tag) -> None:
+    """K3 (``fn(out_dtype)``) bitwise against its plain version on the
+    logical operands a' [M, K], b' [N, K], in fp32 and in bf16 (the plain
+    bf16 is its fp32 result rounded once)."""
+    want = G.gemm_int8_rank1_plain(a_mk, b_nk, sa, sb, alpha, torch.float32)
+    require(torch.equal(fn(torch.float32), want), f"K3 fp32 differs from its plain version: {tag}")
+    require(torch.equal(fn(torch.bfloat16), want.to(torch.bfloat16)),
+            f"K3 bf16 differs from its plain version: {tag}")
+    print(f"phase 2 gemm_int8_rank1 {tag}: bf16 and fp32 outputs bitwise")
+
+
+# K3 in every order the paths give it.  Serving: "kmajor" (MX int8
+# weights [N, K]) and "kk" (NV int8 weights [K, N]) at decode (M = 4) and
+# prefill (M = 512) of Qwen3-8B's projections, (K, N): count a layer, and
+# "nk" (both operands K-contiguous) beside them.  A QAT step of phase 6
+# (4096 tokens, 4096 -> 12288 -> 4096), (M, K, N, order): count: the
+# forward in "kk", the int8 backward's dgrad and wgrad in "nk"
+K3_LINEARS = {(4096, 4096): 2, (4096, 1024): 2, (4096, 12288): 2, (12288, 4096): 1}
+K3_QAT_STEP = {(4096, 4096, 12288, "kk"): 1, (4096, 12288, 4096, "kk"): 1,
+               (4096, 12288, 4096, "nk"): 1, (12288, 4096, 4096, "nk"): 1,
+               (4096, 4096, 12288, "nk"): 2}
+K3_TARGET = {"decode": 1.0, "kmajor": 1.0, "nk": 1.0, "kk": 1.5}   # x the yardstick's time
+
+
+def compare_k3(torch, results: dict, layers: int) -> None:
+    """K3 at every shape and order above, bitwise in bf16 and fp32, timed
+    beside its bound and its yardstick: bf16 ``torch.matmul`` at M <= 16
+    (``torch._int_mm`` refuses it), ``torch._int_mm`` (int32 out, no
+    epilogue) above; the ratio to the target, and K3's sum over a decode
+    step (seven linears x ``layers``), a 512-row prefill and a QAT step."""
+    from qutlass_tpu_torch.kernels import gemm as G
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    times = {}
+
+    def case(m, k, n, orders):
+        at = torch.randint(-127, 128, (k, m), generator=gen, device=dev, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        sa = torch.rand(m, generator=gen, device=dev) + 0.01
+        sb = torch.rand(n, generator=gen, device=dev) + 0.01
+        am, bt = at.T.contiguous(), b.T.contiguous()
+        bnd = gemm_bound(m, n, k, m * k + 4 * m, n * k + 4 * n, "int8")
+        if m <= 16:
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            w = torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+            yard, lib = timed_ms(torch, lambda: x @ w.T), None
+            del x, w
+        else:
+            yard = lib = _int_mm_ms(torch, am, b)
+        yname = "bf16 torch.matmul" if m <= 16 else "torch._int_mm"
+        iters = 5 if m > 512 else 20
+        for order in orders:
+            aa, bb = (am if order == "nk" else at), (bt if order == "kk" else b)
+            fn = lambda od=torch.bfloat16: G.gemm_int8_rank1(   # noqa: E731
+                aa, bb, sa, sb, 0.37, a_kmajor=order != "nk", b_kmajor=order == "kk",
+                out_dtype=od)
+            _check_k3(torch, G, at.T, b, sa, sb, 0.37, fn, f"{order} M,K,N={(m, k, n)}")
+            ms = timed_ms(torch, fn, iters)
+            times[m, k, n, order] = ms
+            target = K3_TARGET["decode" if m <= 16 else order]
+            ratio = ms / yard
+            extra = ""
+            if (m, k, n) == TIMED and order == "kmajor":
+                plain = timed_ms(torch, lambda: G.gemm_int8_rank1_plain(at.T, b, sa, sb, 0.37), 5)
+                results["gemm_int8_rank1"].update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                                                  bound_by=bnd[1], library_ms=lib)
+                extra = f" plain_ms={plain:.4f}"
+            print(f"phase 2 gemm_int8_rank1 {order} M,K,N={(m, k, n)} ms={ms:.4f}{extra} "
+                  f"bound_ms={bnd[0]:.6f} ({bnd[1]}, {ms / bnd[0]:.1f}x) {yname} {yard:.4f} ms: "
+                  f"{ratio:.3f}x, target <= {target}x {'met' if ratio <= target else 'MISSED'}")
+
+    for m in SHAPES_M:
+        for k, n in SHAPES_KN:
+            case(m, k, n, ("kmajor", "kk", "nk"))
+    for (m, k, n, order) in K3_QAT_STEP:
+        if (m, k, n, order) not in times:
+            case(m, k, n, [o for (mm, kk_, nn, o) in K3_QAT_STEP if (mm, kk_, nn) == (m, k, n)])
+    for m in SHAPES_M:
+        what = f"decode step (batch {m})" if m <= 16 else f"{m}-row prefill"
+        for order, path in (("kmajor", "MX int8"), ("kk", "NV int8"), ("nk", "[M, K] x [N, K]")):
+            tot = layers * sum(c * times[m, k, n, order] for (k, n), c in K3_LINEARS.items())
+            print(f"phase 2 K3 in a {what}, {path} order ({order}), 7 linears x {layers} "
+                  f"layers: {tot:.3f} ms")
+    tot = sum(c * times[key] for key, c in K3_QAT_STEP.items())
+    print(f"phase 2 K3 in an int8-mode QAT step (4096 tokens; forward kk x 2, dgrad and wgrad "
+          f"nk x 2 layers): {tot:.3f} ms")
+
+
 def compare_kernels(torch, results: dict) -> None:
     """K1-K4, the MXFP4 path's kernels."""
     import qutlass_tpu_torch as qt
@@ -268,17 +361,11 @@ def compare_kernels(torch, results: dict) -> None:
         for m in SHAPES_M:
             shape = (m, k, n)
             x, ai, sa = acts[m, k]
-            # K3: the main path's GEMM
-            y3 = I8.matmul_mxf4_bf16_int8_kmajor(ai, wi, sa, sb, 1.0)
-            want = G.gemm_int8_rank1_plain(ai.T, wi, sa, sb, 1.0)
-            require(torch.equal(y3, want), f"K3 differs from its plain version at {shape}")
-            ms = timed_ms(torch, lambda: I8.matmul_mxf4_bf16_int8_kmajor(ai, wi, sa, sb, 1.0))
-            plain = timed_ms(torch, lambda: G.gemm_int8_rank1_plain(ai.T, wi, sa, sb, 1.0))
-            bf16 = timed_ms(torch, lambda: x @ w.T)
-            lib = _int_mm_ms(torch, ai.T, wi) if m > 16 else None
-            record("gemm_int8_rank1", shape, 0.0, ms, plain,     # bitwise, required above
-                   f" torch_bf16_matmul_ms={bf16:.4f}",
-                   gemm_bound(m, n, k, m * k + 4 * m, n * k + 4 * n, "int8"), lib)
+            # K3: the main path's GEMM on the path's operands (timed in
+            # compare_k3)
+            _check_k3(torch, G, ai.T, wi, sa, sb, 1.0,
+                      lambda od: I8.matmul_mxf4_bf16_int8_kmajor(ai, wi, sa, sb, 1.0, od),
+                      f"kmajor at {shape}")
             # K4: the fp4-weight GEMM, bitwise vs plain and vs K3 at deficit <= 3
             xqt, xst = Q.quantize_mx(x, h, rot_size=32, layout="kmajor")
             y4 = G.gemm_fp4_mx(xqt, wqt, xst, wst, 1.0, layout="kmajor")
@@ -389,14 +476,11 @@ def compare_nv_kernels(torch, results: dict) -> None:
             shape = (m, k, n)
             x, gx, (xqt, xst), ai, sa = acts[m, k]
             alpha = 1.0 / (gx * gw)                      # on the card, as on the path
-            # K3 in the K-major x K-major order of NV int8 weights
-            y3 = I8.matmul_mxf4_bf16_int8_kk(ai, wi, sa, sb, alpha)
-            want = G.gemm_int8_rank1_plain(ai.T, wi.T, sa, sb, alpha)
-            require(torch.equal(y3, want), f"K3 kk differs from its plain version at {shape}")
-            ms = timed_ms(torch, lambda: I8.matmul_mxf4_bf16_int8_kk(ai, wi, sa, sb, alpha))
-            plain = timed_ms(torch, lambda: G.gemm_int8_rank1_plain(ai.T, wi.T, sa, sb, alpha))
-            print(f"phase 2 gemm_int8_rank1 kk (NV int8 weights [K, N]) M,K,N={shape} "
-                  f"bitwise ms={ms:.4f} plain_ms={plain:.4f}")
+            # K3 in the K-major x K-major order of NV int8 weights, alpha on
+            # the card (timed in compare_k3)
+            _check_k3(torch, G, ai.T, wi.T, sa, sb, alpha,
+                      lambda od: I8.matmul_mxf4_bf16_int8_kk(ai, wi, sa, sb, alpha, od),
+                      f"kk (NV int8 weights [K, N]) at {shape}")
             # K7: the NV fp4-weight GEMM
             y7 = G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha, layout="kmajor")
             want7 = G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha, layout="kmajor")
@@ -549,16 +633,10 @@ def compare_qat_kernels(torch, results: dict) -> None:
                                     dtype=torch.int8),
              torch.randint(-96, 97, (QAT_D, QAT_TOKENS), generator=gen, device=dev, dtype=torch.int8),
              torch.rand(QAT_H, generator=gen, device=dev))):
-        y = G.gemm_int8_rank1(a, b, sa, ones, 1.0, a_kmajor=False, b_kmajor=False)
-        require(torch.equal(y, G.gemm_int8_rank1_plain(a, b, sa, ones, 1.0)),
-                f"K3 ({tag} order of the int8 backward) differs from its plain version")
-        ms = timed_ms(torch, lambda: G.gemm_int8_rank1(a, b, sa, ones, 1.0, a_kmajor=False,
-                                                       b_kmajor=False))
-        plain = timed_ms(torch, lambda: G.gemm_int8_rank1_plain(a, b, sa, ones, 1.0), 5)
-        m, k = a.shape
-        bnd = gemm_bound(m, QAT_D, k, m * k + 4 * m, QAT_D * k + 4 * QAT_D, "int8")
-        print(f"phase 2 gemm_int8_rank1 int8 backward {tag} M,K,N={(m, k, QAT_D)} bitwise "
-              f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd[0]:.6f} ({bnd[1]})")
+        _check_k3(torch, G, a, b, sa, ones, 1.0,
+                  lambda od: G.gemm_int8_rank1(a, b, sa, ones, 1.0, a_kmajor=False,
+                                               b_kmajor=False, out_dtype=od),
+                  f"the int8 backward's {tag} order, M,K,N={(*a.shape, QAT_D)}")
 
     # the training forward's kernels at phase 6's sizes (quartet_forward):
     # K1 K-major on the activation with the clip mask and on the weight,
@@ -585,14 +663,9 @@ def compare_qat_kernels(torch, results: dict) -> None:
               f"and mask bitwise ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd[0]:.6f} "
               f"({bnd[1]}); w {(n, k)} bitwise")
         (xi, sx, _), (wi, sw, _) = I8.encode_int8_planes(*got[:2]), I8.encode_int8_planes(*wq)
-        y = I8.matmul_mxf4_bf16_int8_kk(xi, wi, sx, sw, 1.0)
-        require(torch.equal(y, G.gemm_int8_rank1_plain(xi.T, wi.T, sx, sw, 1.0)),
-                f"K3 kk differs from its plain version at the training forward {(m, k, n)}")
-        ms = timed_ms(torch, lambda: I8.matmul_mxf4_bf16_int8_kk(xi, wi, sx, sw, 1.0))
-        plain = timed_ms(torch, lambda: G.gemm_int8_rank1_plain(xi.T, wi.T, sx, sw, 1.0), 5)
-        bnd = gemm_bound(m, n, k, m * k + 4 * m, n * k + 4 * n, "int8")
-        print(f"phase 2 gemm_int8_rank1 kk training forward M,K,N={(m, k, n)} bitwise "
-              f"ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd[0]:.6f} ({bnd[1]})")
+        _check_k3(torch, G, xi.T, wi.T, sx, sw, 1.0,
+                  lambda od: I8.matmul_mxf4_bf16_int8_kk(xi, wi, sx, sw, 1.0, od),
+                  f"kk at the training forward {(m, k, n)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1419,6 +1492,8 @@ def main() -> int:
     compare_qat_kernels(torch, results)
     compare_bwd_op_kernels(torch, results)
     compare_fused_linear_kernels(torch, results)
+    from qutlass_tpu_torch.models import QWEN3_8B
+    compare_k3(torch, results, QWEN3_8B.num_layers)
 
     # phase 3
     t0 = time.perf_counter()

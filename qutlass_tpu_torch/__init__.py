@@ -27,6 +27,7 @@ from . import utils
 from .formats import codecs
 from .ops import cuda_ops as _ops
 from .ops import dispatch
+from .ops import emulation as _emu
 from .ops import validation as _val
 from .utils import (ceil_div, dct_matrix, from_blocked, get_padded_shape_mx,
                     get_padded_shape_nv, hadamard_matrix, identity_matrix, pad_to_block,
@@ -95,6 +96,17 @@ def _norm_scales(sf: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 def _check_method(method: str) -> None:
     if method not in ("quest", "abs_max"):
         raise ValueError(f"invalid method {method!r}, must be 'quest' or 'abs_max'")
+
+
+def _tn_impl(backend: str | None, kernel_route, plain):
+    """The tn GEMMs' ``backend``: None runs the device route (the kernel
+    for CUDA tensors, its plain version for CPU ones), "emulation" the
+    plain version on any device because the caller asks for it."""
+    if backend is None:
+        return kernel_route
+    if backend == "emulation":
+        return plain
+    raise ValueError(f"invalid backend {backend!r}, must be None or 'emulation'")
 
 
 # ---------------------------------------------------------------------------
@@ -190,25 +202,27 @@ fused_quantize_nv_int8 = fusedQuantizeNvInt8
 # block-scaled GEMMs
 # ---------------------------------------------------------------------------
 
-def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha, backend: str | None = None):
     """out[M, N] = (dq(a) @ dq(b)^T) * alpha in bf16.
 
     a: u8 [M, K/2], b: u8 [N, K/2]; scales row-major (or the flattened
-    padded layout from :func:`to_blocked`).
+    padded layout from :func:`to_blocked`).  ``backend="emulation"`` runs
+    the plain version on the tensors' device.
     """
+    impl = _tn_impl(backend, _ops.matmul_mxf4_bf16_tn, _emu.matmul_mxf4_bf16_tn)
     m, n, k = _val.check_matmul_tn(a, b, 32)
     a_sf = _norm_scales(a_sf, m, k // 32)
     b_sf = _norm_scales(b_sf, n, k // 32)
-    return _ops.matmul_mxf4_bf16_tn(_as_bytes(a), _as_bytes(b), a_sf, b_sf,
-                                    alpha)
+    return impl(_as_bytes(a), _as_bytes(b), a_sf, b_sf, alpha)
 
 
-def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha, out_dtype=torch.bfloat16):
     """K-major MXFP4 GEMM: at u8 [K/2, M], bt u8 [K/2, N], scales u8
-    [K/32, M] / [K/32, N] (``fusedQuantizeMx(..., layout="kmajor")``)."""
+    [K/32, M] / [K/32, N] (``fusedQuantizeMx(..., layout="kmajor")``);
+    ``out_dtype`` bf16 or fp32 (the fp32 result, not rounded)."""
     return _ops.matmul_mxf4_bf16_kmajor(_as_bytes(at), _as_bytes(bt),
                                         _as_bytes(a_sft), _as_bytes(b_sft),
-                                        alpha)
+                                        alpha, out_dtype=out_dtype)
 
 
 def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
@@ -261,26 +275,28 @@ def matmul_ada_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
     return matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha)
 
 
-def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha, backend: str | None = None):
     """NVFP4 GEMM: out[M, N] = (dq(a) @ dq(b)^T) * alpha in bf16.
 
     a: u8 [M, K/2], b: u8 [N, K/2]; e4m3 scales row-major [rows, K/16]
     (or the quantizer's padded buffer, or its :func:`to_blocked`
-    flattening).
+    flattening).  ``backend="emulation"`` runs the plain version on the
+    tensors' device.
     """
+    impl = _tn_impl(backend, _ops.matmul_nvf4_bf16_tn, _emu.matmul_nvf4_bf16_tn)
     m, n, k = _val.check_matmul_tn(a, b, 16)
     a_sf = _norm_scales(a_sf, m, k // 16)
     b_sf = _norm_scales(b_sf, n, k // 16)
-    return _ops.matmul_nvf4_bf16_tn(_as_bytes(a), _as_bytes(b), a_sf, b_sf,
-                                    alpha)
+    return impl(_as_bytes(a), _as_bytes(b), a_sf, b_sf, alpha)
 
 
-def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha, out_dtype=torch.bfloat16):
     """K-major NVFP4 GEMM: at u8 [K/2, M], bt u8 [K/2, N], e4m3 scales u8
-    [K/16, M] / [K/16, N] (``fusedQuantizeNv(..., layout="kmajor")``)."""
+    [K/16, M] / [K/16, N] (``fusedQuantizeNv(..., layout="kmajor")``);
+    ``out_dtype`` bf16 or fp32 (the fp32 result, not rounded)."""
     return _ops.matmul_nvf4_bf16_kmajor(_as_bytes(at), _as_bytes(bt),
                                         _as_bytes(a_sft), _as_bytes(b_sft),
-                                        alpha)
+                                        alpha, out_dtype=out_dtype)
 
 
 def fused_linear_nvf4(x, wqt, wst, h, global_scale, alpha=None, *,

@@ -1,6 +1,7 @@
 // K4 gemm_fp4_mx: the MXFP4 decode GEMM,
-//   C[m, n] = bf16( (sum_k dq(a)[m, k] * dq(b)[n, k]) * alpha ),
-// dq = e2m1 code times its 32-group e8m0 scale, exact in bf16.
+//   C[m, n] = out( (sum_k dq(a)[m, k] * dq(b)[n, k]) * alpha ),
+// dq = e2m1 code times its 32-group e8m0 scale, exact in bf16; out = bf16
+// or fp32 (the tensor-parallel partial sums' type).
 //
 // Replaces the Pallas kernel qutlass_tpu/kernels/gemm.py:_run_gemm with
 // _gemm_fp4_kernel, fmt="mx" (:127-148), behind matmul_mxf4_bf16_tn,
@@ -27,12 +28,13 @@ namespace {
 using namespace qt::tile;
 constexpr int BK = 32;  // one scale group
 
+template <typename Out>
 __global__ void __launch_bounds__(THREADS)
 gemm_fp4_mx_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k, int a_packed,
                    const uint8_t* __restrict__ as, long long as_m, long long as_g,
                    const uint8_t* __restrict__ b, long long b_n, long long b_k, int b_packed,
                    const uint8_t* __restrict__ bs, long long bs_n, long long bs_g, float alpha,
-                   __nv_bfloat16* __restrict__ c, int M, int N, int K) {
+                   Out* __restrict__ c, int M, int N, int K) {
   __shared__ float As[BK][PAD];
   __shared__ float Bs[BK][PAD];
 
@@ -56,11 +58,17 @@ gemm_fp4_mx_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k, 
 extern "C" int qt_gemm_fp4_mx(const void* a, long long a_m, long long a_k, int a_packed,
                               const void* as, long long as_m, long long as_g, const void* b,
                               long long b_n, long long b_k, int b_packed, const void* bs,
-                              long long bs_n, long long bs_g, float alpha, void* c, int M, int N,
-                              int K, void* stream) {
+                              long long bs_n, long long bs_g, float alpha, void* c, int out_f32,
+                              int M, int N, int K, void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_fp4_mx_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)a, a_m, a_k, a_packed, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n,
-      b_k, b_packed, (const uint8_t*)bs, bs_n, bs_g, alpha, (__nv_bfloat16*)c, M, N, K);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (out_f32)
+    gemm_fp4_mx_kernel<float><<<grid, THREADS, 0, st>>>(
+        (const uint8_t*)a, a_m, a_k, a_packed, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n,
+        b_k, b_packed, (const uint8_t*)bs, bs_n, bs_g, alpha, (float*)c, M, N, K);
+  else
+    gemm_fp4_mx_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+        (const uint8_t*)a, a_m, a_k, a_packed, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n,
+        b_k, b_packed, (const uint8_t*)bs, bs_n, bs_g, alpha, (__nv_bfloat16*)c, M, N, K);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // K7 gemm_fp4_nv: the NVFP4 decode GEMM,
-//   C[m, n] = bf16( float(sum_k dq(a)[m, k] * dq(b)[n, k]) * alpha ),
-// dq = e2m1 value times its 16-group e4m3 scale.
+//   C[m, n] = out( float(sum_k dq(a)[m, k] * dq(b)[n, k]) * alpha ),
+// dq = e2m1 value times its 16-group e4m3 scale; out = bf16 or fp32.
 //
 // Replaces the Pallas kernel qutlass_tpu/kernels/gemm.py:_run_gemm with
 // fmt="nv" (:168), behind matmul_nvf4_bf16_tn and _kmajor (:255/:265):
@@ -35,13 +35,13 @@ namespace {
 using namespace qt::tile;
 constexpr int BK = 32;  // two scale groups
 
+template <typename Out>
 __global__ void __launch_bounds__(THREADS)
 gemm_fp4_nv_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k,
                    const uint8_t* __restrict__ as, long long as_m, long long as_g,
                    const uint8_t* __restrict__ b, long long b_n, long long b_k,
                    const uint8_t* __restrict__ bs, long long bs_n, long long bs_g,
-                   const float* __restrict__ alpha_ptr, __nv_bfloat16* __restrict__ c, int M,
-                   int N, int K) {
+                   const float* __restrict__ alpha_ptr, Out* __restrict__ c, int M, int N, int K) {
   __shared__ float As[BK][PAD];
   __shared__ float Bs[BK][PAD];
   __shared__ float Sa[BK / 16][BM];
@@ -68,10 +68,17 @@ gemm_fp4_nv_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k,
 extern "C" int qt_gemm_fp4_nv(const void* a, long long a_m, long long a_k, const void* as,
                               long long as_m, long long as_g, const void* b, long long b_n,
                               long long b_k, const void* bs, long long bs_n, long long bs_g,
-                              const void* alpha, void* c, int M, int N, int K, void* stream) {
+                              const void* alpha, void* c, int out_f32, int M, int N, int K,
+                              void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_fp4_nv_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)a, a_m, a_k, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n, b_k,
-      (const uint8_t*)bs, bs_n, bs_g, (const float*)alpha, (__nv_bfloat16*)c, M, N, K);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (out_f32)
+    gemm_fp4_nv_kernel<float><<<grid, THREADS, 0, st>>>(
+        (const uint8_t*)a, a_m, a_k, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n, b_k,
+        (const uint8_t*)bs, bs_n, bs_g, (const float*)alpha, (float*)c, M, N, K);
+  else
+    gemm_fp4_nv_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
+        (const uint8_t*)a, a_m, a_k, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n, b_k,
+        (const uint8_t*)bs, bs_n, bs_g, (const float*)alpha, (__nv_bfloat16*)c, M, N, K);
   return (int)cudaGetLastError();
 }

@@ -134,17 +134,21 @@ __device__ __forceinline__ void nv_accumulate_group(double (&acc)[4][4], const f
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(double v) { return __double2float_rn(v); }
 
-// c[m, n] = bf16(float(acc) * alpha) for the tile's outputs below M and N:
-// the fp64 NV sum is rounded once to fp32 first
-template <typename Acc>
-__device__ __forceinline__ void store(__nv_bfloat16* __restrict__ c, const Acc (&acc)[4][4],
-                                      float alpha, int m0, int n0, int M, int N, int tx, int ty) {
+__device__ __forceinline__ void out(__nv_bfloat16* c, long long i, float y) { c[i] = __float2bfloat16_rn(y); }
+__device__ __forceinline__ void out(float* c, long long i, float y) { c[i] = y; }
+
+// c[m, n] = Out(float(acc) * alpha) for the tile's outputs below M and N
+// (Out bf16, rounded to nearest even, or fp32): the fp64 NV sum is rounded
+// once to fp32 first
+template <typename Acc, typename Out = __nv_bfloat16>
+__device__ __forceinline__ void store(Out* __restrict__ c, const Acc (&acc)[4][4], float alpha,
+                                      int m0, int n0, int M, int N, int tx, int ty) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) c[(long long)m * N + n] = __float2bfloat16_rn(__fmul_rn(to_f32(acc[i][j]), alpha));
+      if (m < M && n < N) out(c, (long long)m * N + n, __fmul_rn(to_f32(acc[i][j]), alpha));
     }
 }
 

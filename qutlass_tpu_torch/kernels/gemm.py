@@ -8,7 +8,15 @@ device to the kernel.  Operands are passed to the kernels as logical row
 views with their strides, so row-major, K-major and sliced scale buffers
 need no copy.  A launch adds one to ``dispatch.launch_counts``.  An
 alpha that is a CUDA tensor stays on the card (no host sync): K3 takes
-it folded into ``sa``, K7 and K11 read it from device memory.
+it folded into ``sa``, K7 and K11 read it from device memory.  K3, K4
+and K7 write bf16 or, with ``out_dtype=torch.float32``, the fp32 result
+unrounded.
+
+K3 is two kernels, picked by M: up to ``DECODE_M`` rows the decode
+kernel, which splits K over blocks (``decode_split``) and adds the int32
+partial sums in a workspace allocated here, with one counter a column
+tile that the kernel leaves zero (kept per device and stream, so two
+streams never share one); above it the prefill kernel.
 """
 from __future__ import annotations
 
@@ -16,8 +24,13 @@ import torch
 
 from ..ops import dispatch
 from ..ops import emulation as _emu
+from ..ops.emulation import check_out_dtype
 from ..ops.emulation import matmul_int8_rank1_plain as gemm_int8_rank1_plain
 from . import _build
+
+DECODE_M = 16            # K3's decode kernel takes M <= 16 rows
+_DECODE_MAX_KC = 2048    # its K slices are at most this long
+_counters: dict[tuple[int, int], torch.Tensor] = {}
 
 _NV_PLAIN = {"tn": _emu.matmul_nvf4_bf16_tn,
              "kmajor": _emu.matmul_nvf4_bf16_kmajor}
@@ -39,50 +52,114 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def decode_rows(kmajor_weight: bool) -> int:
+    """Weight rows a block of K3's decode kernel: 128 for [K, N] weights
+    (128-byte runs of each k-row), 64 for [N, K]."""
+    return 128 if kmajor_weight else 64
+
+
+def decode_split(n: int, k: int, sms: int, kmajor_weight: bool) -> tuple[int, int]:
+    """(K slice length, number of slices) of K3's decode kernel: about six
+    128-thread blocks an SM for an [N, K] weight, one and a half
+    256-thread blocks for a [K, N] one (the best of 0.5x-4x these at the
+    Qwen3-8B decode shapes on an H100); slices a multiple of the kernel's
+    batch (128 k-rows of a [K, N] weight, 256 bytes of an [N, K] one) and
+    at most 2048 long."""
+    gran = 128 if kmajor_weight else 256
+    tiles = -(-n // decode_rows(kmajor_weight))
+    blocks = 3 * sms // 2 if kmajor_weight else 6 * sms
+    kc = -(-k // -(-blocks // tiles))
+    kc = min(_DECODE_MAX_KC, max(gran, -(-kc // gran) * gran))
+    return kc, -(-k // kc)
+
+
+def _int8_strides(name: str, t: torch.Tensor) -> tuple[int, int]:
+    """The (row, k) strides K3 is given for a logical [rows, K] int8 view:
+    K-contiguous with 16-byte aligned rows and K % 16 == 0, or K-major
+    (unit stride along the rows; a single row counts as either)."""
+    rows, k = t.shape
+    if t.stride(1) == 1 and t.stride(0) % 16 == 0 and k % 16 == 0 and t.data_ptr() % 16 == 0:
+        return t.stride(0), 1
+    if t.stride(0) == 1 or rows == 1:
+        return 1, t.stride(1)
+    raise ValueError(f"{name}: K3 takes a K-contiguous operand with 16-byte aligned rows and "
+                     f"K % 16 == 0, or a K-major one; got shape {tuple(t.shape)} strides "
+                     f"{t.stride()}")
+
+
+def _decode_counters(dev: torch.device, tiles: int) -> torch.Tensor:
+    """K3's zeroed arrival counters for the current stream of ``dev``."""
+    stream = torch.cuda.current_stream(dev)
+    key = (dev.index, stream.cuda_stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < tiles:
+        cnt = _counters[key] = torch.zeros(max(tiles, 256), dtype=torch.int32, device=dev)
+    return cnt
+
+
 def gemm_int8_rank1(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
-                    sb: torch.Tensor, alpha, *, a_kmajor: bool,
-                    b_kmajor: bool) -> torch.Tensor:
-    """Kernel K3: C[M, N] = bf16(float(a' @ b'^T) * (sa * alpha) * sb).
+                    sb: torch.Tensor, alpha, *, a_kmajor: bool, b_kmajor: bool,
+                    out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Kernel K3: C[M, N] = out_dtype(float(a' @ b'^T) * (sa * alpha) * sb).
 
     ``a`` is int8 [K, M] when ``a_kmajor`` else [M, K]; ``b`` is int8
-    [K, N] when ``b_kmajor`` else [N, K]; sa f32 [M], sb f32 [N].
+    [K, N] when ``b_kmajor`` else [N, K]; sa f32 [M], sb f32 [N].  Each
+    operand must be K-contiguous with 16-byte aligned rows and K % 16 == 0,
+    or have unit stride along its rows (K-major); anything else raises.
     """
     a_mk = a.T if a_kmajor else a
     b_nk = b.T if b_kmajor else b
+    out_dtype = check_out_dtype(out_dtype)
     if not dispatch.on_cuda(a, b, sa, sb):
-        return gemm_int8_rank1_plain(a_mk, b_nk, sa, sb, alpha)
+        return gemm_int8_rank1_plain(a_mk, b_nk, sa, sb, alpha, out_dtype)
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"operands must be int8, got {a.dtype} / {b.dtype}")
     (m, k), (n, kb) = a_mk.shape, b_nk.shape
     if k != kb:
         raise ValueError(f"operands disagree on K: {k} vs {kb}")
+    if min(m, n, k) == 0:
+        raise ValueError(f"empty GEMM: M, N, K = {m}, {n}, {k}")
     for name, s, ln in (("sa", sa, m), ("sb", sb, n)):
         if s.dtype != torch.float32 or tuple(s.shape) != (ln,) or not s.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 [{ln}], got "
                              f"{s.dtype} {tuple(s.shape)}")
+    a_s, b_s = _int8_strides("a", a_mk), _int8_strides("b", b_nk)
     if isinstance(alpha, torch.Tensor) and alpha.device.type == "cuda":
         # fp32 sa * alpha here is the product the kernel forms in its
         # epilogue, and sa * 1.0 is exact, so the result is the same bits
         sa, alpha = sa * alpha.reshape(()).to(torch.float32), 1.0
-    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    part = cnt = None
+    kc = 0
+    if m <= DECODE_M:
+        kk = b_s[0] == 1                         # the weight is K-major
+        kc, splits = decode_split(n, k, torch.cuda.get_device_properties(a.device)
+                                  .multi_processor_count, kk)
+        rows = decode_rows(kk)
+        tiles = -(-n // rows)
+        part = torch.empty((splits, tiles * rows, 16), dtype=torch.int32, device=a.device)
+        cnt = _decode_counters(a.device, tiles)
     err = _build.library().qt_gemm_int8_rank1(
-        a_mk.data_ptr(), a_mk.stride(0), a_mk.stride(1), b_nk.data_ptr(),
-        b_nk.stride(0), b_nk.stride(1), sa.data_ptr(), sb.data_ptr(),
-        _alpha_float(alpha), c.data_ptr(), m, n, k, _stream(a))
+        a_mk.data_ptr(), *a_s, b_nk.data_ptr(), *b_s, sa.data_ptr(), sb.data_ptr(),
+        _alpha_float(alpha), c.data_ptr(), int(out_dtype == torch.float32), m, n, k,
+        None if part is None else part.data_ptr(), None if cnt is None else cnt.data_ptr(),
+        kc, _stream(a))
     _build.check(err, "gemm_int8_rank1")
     dispatch.note_launch("gemm_int8_rank1")
     return c
 
 
-def gemm_fp4_mx_plain(a, b, a_sf, b_sf, alpha, *, layout: str):
+def gemm_fp4_mx_plain(a, b, a_sf, b_sf, alpha, *, layout: str,
+                      out_dtype: torch.dtype = torch.bfloat16):
     """Plain version of K4 for ``layout`` in ("tn", "kmajor",
     "kmajor_codes")."""
-    return _FP4_PLAIN[layout](a, b, a_sf, b_sf, alpha)
+    return _FP4_PLAIN[layout](a, b, a_sf, b_sf, alpha, out_dtype)
 
 
 def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
-                b_sf: torch.Tensor, alpha, *, layout: str) -> torch.Tensor:
-    """Kernel K4: C[M, N] = bf16((dq(a) @ dq(b)^T) * alpha).
+                b_sf: torch.Tensor, alpha, *, layout: str,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Kernel K4: C[M, N] = out_dtype((dq(a) @ dq(b)^T) * alpha).
 
     ``layout="tn"``: a/b packed u8 [M, K/2] / [N, K/2], scales [M, K/32]
     / [N, K/32].  ``"kmajor"``: a/b packed [K/2, M] / [K/2, N], scales
@@ -91,8 +168,9 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     """
     if layout not in _FP4_PLAIN:
         raise ValueError(f"invalid layout {layout!r}")
+    out_dtype = check_out_dtype(out_dtype)
     if not dispatch.on_cuda(a, b, a_sf, b_sf):
-        return gemm_fp4_mx_plain(a, b, a_sf, b_sf, alpha, layout=layout)
+        return gemm_fp4_mx_plain(a, b, a_sf, b_sf, alpha, layout=layout, out_dtype=out_dtype)
     for name, t in (("a", a), ("b", b), ("a_sf", a_sf), ("b_sf", b_sf)):
         if t.dtype != torch.uint8 or t.ndim != 2:
             raise TypeError(f"{name} must be a 2-D uint8 tensor, got {t.dtype} "
@@ -109,26 +187,29 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     if tuple(as_r.shape) != (m, k // 32) or tuple(bs_r.shape) != (n, k // 32):
         raise ValueError(f"scale shapes {tuple(a_sf.shape)} / {tuple(b_sf.shape)} "
                          f"do not match M={m}, N={n}, K={k} ({layout})")
-    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.library().qt_gemm_fp4_mx(
         a_r.data_ptr(), a_r.stride(0), a_r.stride(1), int(a_packed),
         as_r.data_ptr(), as_r.stride(0), as_r.stride(1),
         b_r.data_ptr(), b_r.stride(0), b_r.stride(1), 1,
         bs_r.data_ptr(), bs_r.stride(0), bs_r.stride(1),
-        _alpha_float(alpha), c.data_ptr(), m, n, k, _stream(a))
+        _alpha_float(alpha), c.data_ptr(), int(out_dtype == torch.float32), m, n, k,
+        _stream(a))
     _build.check(err, "gemm_fp4_mx")
     dispatch.note_launch("gemm_fp4_mx")
     return c
 
 
-def gemm_fp4_nv_plain(a, b, a_sf, b_sf, alpha, *, layout: str):
+def gemm_fp4_nv_plain(a, b, a_sf, b_sf, alpha, *, layout: str,
+                      out_dtype: torch.dtype = torch.bfloat16):
     """Plain version of K7 for ``layout`` in ("tn", "kmajor")."""
-    return _NV_PLAIN[layout](a, b, a_sf, b_sf, alpha)
+    return _NV_PLAIN[layout](a, b, a_sf, b_sf, alpha, out_dtype)
 
 
 def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
-                b_sf: torch.Tensor, alpha, *, layout: str) -> torch.Tensor:
-    """Kernel K7: C[M, N] = bf16((dq(a) @ dq(b)^T) * alpha), NVFP4
+                b_sf: torch.Tensor, alpha, *, layout: str,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Kernel K7: C[M, N] = out_dtype((dq(a) @ dq(b)^T) * alpha), NVFP4
     operands (e2m1 codes, e4m3 bytes per 16-group).
 
     ``layout="tn"``: a/b packed u8 [M, K/2] / [N, K/2], scales [M, K/16]
@@ -137,9 +218,10 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     """
     if layout not in _NV_PLAIN:
         raise ValueError(f"invalid layout {layout!r}")
+    out_dtype = check_out_dtype(out_dtype)
     al = torch.as_tensor(alpha, dtype=torch.float32, device=a.device).reshape(())
     if not dispatch.on_cuda(a, b, a_sf, b_sf, al):
-        return gemm_fp4_nv_plain(a, b, a_sf, b_sf, al, layout=layout)
+        return gemm_fp4_nv_plain(a, b, a_sf, b_sf, al, layout=layout, out_dtype=out_dtype)
     for name, t in (("a", a), ("b", b), ("a_sf", a_sf), ("b_sf", b_sf)):
         if t.dtype != torch.uint8 or t.ndim != 2:
             raise TypeError(f"{name} must be a 2-D uint8 tensor, got {t.dtype} "
@@ -154,13 +236,13 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     if tuple(as_r.shape) != (m, k // 16) or tuple(bs_r.shape) != (n, k // 16):
         raise ValueError(f"scale shapes {tuple(a_sf.shape)} / {tuple(b_sf.shape)} "
                          f"do not match M={m}, N={n}, K={k} ({layout})")
-    c = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.library().qt_gemm_fp4_nv(
         a_r.data_ptr(), a_r.stride(0), a_r.stride(1),
         as_r.data_ptr(), as_r.stride(0), as_r.stride(1),
         b_r.data_ptr(), b_r.stride(0), b_r.stride(1),
         bs_r.data_ptr(), bs_r.stride(0), bs_r.stride(1),
-        al.data_ptr(), c.data_ptr(), m, n, k, _stream(a))
+        al.data_ptr(), c.data_ptr(), int(out_dtype == torch.float32), m, n, k, _stream(a))
     _build.check(err, "gemm_fp4_nv")
     dispatch.note_launch("gemm_fp4_nv")
     return c

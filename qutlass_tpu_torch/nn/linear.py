@@ -168,6 +168,15 @@ class QuantizedLinear(nn.Module):
     ``wi8``/``wsb`` or ``wqt``/``wst``; NV ``nvi8``/``nvsb`` or
     ``wqt``/``wst``, with ``gs`` (and ``gsx`` once calibrated); plus the
     rotation ``h``.
+
+    Differences from the JAX package's class: the constructor takes the
+    stored dict, ``(stored, h, method)``; JAX's positional form
+    ``QuantizedLinear(wqt, wst, h, n, k, method)`` is
+    :meth:`from_kmajor`.  ``create`` stores the int8 operand by default
+    (``weight_format="fp4"`` keeps JAX's packed fp4) and takes NVFP4.  An
+    abs-max weight folds the 1/3 of both operands' 3x-scaled codes into
+    alpha; the JAX class multiplies by 1, so its abs-max output is ~9x
+    the true one (its QuEST output is the port's).
     """
 
     def __init__(self, stored: Mapping, h: torch.Tensor, method: str = "quest"):
@@ -184,6 +193,20 @@ class QuantizedLinear(nn.Module):
                weight_format: str = "int8", fmt: str = "mx") -> "QuantizedLinear":
         return cls(quantize_weight(w, h=h, method=method, fmt=fmt,
                                    weight_format=weight_format), h, method)
+
+    @classmethod
+    def from_kmajor(cls, wqt: torch.Tensor, wst: torch.Tensor, h: torch.Tensor, n: int,
+                    k: int, method: str = "quest") -> "QuantizedLinear":
+        """The JAX constructor's arguments: a K-major MXFP4 weight from
+        ``fusedQuantizeMx(w, h, method=method, layout="kmajor")`` (wqt u8
+        [K/2, N], wst u8 [K/32, N]) for w [N, K], stored as packed fp4."""
+        wqt, wst = q._as_bytes(wqt), q._as_bytes(wst)
+        if tuple(wqt.shape) != (k // 2, n) or tuple(wst.shape) != (k // 32, n):
+            raise ValueError(f"wqt {tuple(wqt.shape)} / wst {tuple(wst.shape)} do not match "
+                             f"n={n}, k={k}: expected ({k // 2}, {n}) / ({k // 32}, {n})")
+        mark = ({"am": torch.ones((), dtype=torch.int8, device=wqt.device)}
+                if method == "abs_max" else {})
+        return cls({"wqt": wqt, "wst": wst, **mark}, h, method)
 
     def stored(self) -> dict:
         d = {name: getattr(self, name) for name in _STORED if hasattr(self, name)}

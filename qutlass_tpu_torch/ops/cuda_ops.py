@@ -7,6 +7,8 @@ shape is routed around a kernel.
 """
 from __future__ import annotations
 
+import torch
+
 from ..kernels import backward as _bwd
 from ..kernels import fused_linear as _fl
 from ..kernels.gemm import gemm_fp4_mx, gemm_fp4_nv, gemm_fp8_mx
@@ -30,8 +32,8 @@ def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
     return gemm_fp4_mx(a, b, a_sf, b_sf, alpha, layout="tn")
 
 
-def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
-    return gemm_fp4_mx(at, bt, a_sft, b_sft, alpha, layout="kmajor")
+def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha, out_dtype=torch.bfloat16):
+    return gemm_fp4_mx(at, bt, a_sft, b_sft, alpha, layout="kmajor", out_dtype=out_dtype)
 
 
 def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
@@ -58,8 +60,8 @@ def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha):
     return gemm_fp4_nv(a, b, a_sf, b_sf, alpha, layout="tn")
 
 
-def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
-    return gemm_fp4_nv(at, bt, a_sft, b_sft, alpha, layout="kmajor")
+def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha, out_dtype=torch.bfloat16):
+    return gemm_fp4_nv(at, bt, a_sft, b_sft, alpha, layout="kmajor", out_dtype=out_dtype)
 
 
 def fused_linear_nvf4(x, wqt, wst, h, global_scale, alpha, *, rot_size: int,

@@ -63,6 +63,15 @@ def as_alpha(alpha, device) -> torch.Tensor:
     return torch.as_tensor(alpha, dtype=torch.float32, device=device).reshape(())
 
 
+def check_out_dtype(out_dtype) -> torch.dtype:
+    """A GEMM's output type: bf16 (rounded to nearest even from the fp32
+    result) or fp32 (the result itself, as tensor-parallel partial sums
+    take it)."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be torch.bfloat16 or torch.float32, got {out_dtype!r}")
+    return out_dtype
+
+
 # ---------------------------------------------------------------------------
 # fused quantize (plain versions of kernels K1, K2, K5, K6)
 # ---------------------------------------------------------------------------
@@ -170,9 +179,9 @@ def dequant_fp4(codes: torch.Tensor, scale_bytes: torch.Tensor) -> torch.Tensor:
 
 def matmul_mxf4_codes(a_codes: torch.Tensor, b_codes: torch.Tensor,
                       a_sf: torch.Tensor, b_sf: torch.Tensor,
-                      alpha) -> torch.Tensor:
-    """out[M, N] = bf16((dq(a) @ dq(b)^T) * alpha) from codes [M, K] /
-    [N, K] and scale bytes [M, K/32] / [N, K/32].
+                      alpha, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """out[M, N] = out_dtype((dq(a) @ dq(b)^T) * alpha) from codes [M, K]
+    / [N, K] and scale bytes [M, K/32] / [N, K/32].
 
     The dequantized operands are exact in bf16 and their products exact
     in fp32; the sum is taken in fp64 (exact for any real operand) and
@@ -182,26 +191,26 @@ def matmul_mxf4_codes(a_codes: torch.Tensor, b_codes: torch.Tensor,
     av = dequant_fp4(a_codes, a_sf).to(torch.float64)
     bv = dequant_fp4(b_codes, b_sf).to(torch.float64)
     acc = (av @ bv.T).to(torch.float32)
-    return (acc * as_alpha(alpha, acc.device)).to(torch.bfloat16)
+    return (acc * as_alpha(alpha, acc.device)).to(check_out_dtype(out_dtype))
 
 
-def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+def matmul_mxf4_bf16_tn(a, b, a_sf, b_sf, alpha, out_dtype=torch.bfloat16):
     """W4A4 block-scaled GEMM: a/b packed u8 [M, K/2] / [N, K/2],
     scale bytes [M, K/32] / [N, K/32] (row-major)."""
     return matmul_mxf4_codes(unpack_codes(a), unpack_codes(b), a_sf, b_sf,
-                             alpha)
+                             alpha, out_dtype)
 
 
-def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+def matmul_mxf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha, out_dtype=torch.bfloat16):
     """K-major variant: at/bt packed u8 [K/2, M] / [K/2, N], scales
     [K/32, M] / [K/32, N]."""
-    return matmul_mxf4_bf16_tn(at.T, bt.T, a_sft.T, b_sft.T, alpha)
+    return matmul_mxf4_bf16_tn(at.T, bt.T, a_sft.T, b_sft.T, alpha, out_dtype)
 
 
-def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
+def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha, out_dtype=torch.bfloat16):
     """Unpacked-activation-codes variant: at codes u8 [K, M]."""
     return matmul_mxf4_codes(at.T, unpack_codes(bt.T), a_sft.T, b_sft.T,
-                             alpha)
+                             alpha, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -216,8 +225,9 @@ def dequant_nvfp4(codes: torch.Tensor, scale_bytes: torch.Tensor) -> torch.Tenso
     return (v * C.e4m3_decode_f32(scale_bytes)[..., None]).reshape(r, k)
 
 
-def matmul_nvf4_codes(a_codes, b_codes, a_sf, b_sf, alpha) -> torch.Tensor:
-    """out[M, N] = bf16((dq(a) @ dq(b)^T) * alpha) from codes [M, K] /
+def matmul_nvf4_codes(a_codes, b_codes, a_sf, b_sf, alpha,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """out[M, N] = out_dtype((dq(a) @ dq(b)^T) * alpha) from codes [M, K] /
     [N, K] and e4m3 bytes [M, K/16] / [N, K/16].
 
     The products are exact in fp32 and the sum is taken in fp64, exact
@@ -227,20 +237,20 @@ def matmul_nvf4_codes(a_codes, b_codes, a_sf, b_sf, alpha) -> torch.Tensor:
     av = dequant_nvfp4(a_codes, a_sf).to(torch.float64)
     bv = dequant_nvfp4(b_codes, b_sf).to(torch.float64)
     acc = (av @ bv.T).to(torch.float32)
-    return (acc * as_alpha(alpha, acc.device)).to(torch.bfloat16)
+    return (acc * as_alpha(alpha, acc.device)).to(check_out_dtype(out_dtype))
 
 
-def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha):
+def matmul_nvf4_bf16_tn(a, b, a_sf, b_sf, alpha, out_dtype=torch.bfloat16):
     """NVFP4 GEMM: a/b packed u8 [M, K/2] / [N, K/2], e4m3 bytes
     [M, K/16] / [N, K/16] (row-major)."""
     return matmul_nvf4_codes(unpack_codes(a), unpack_codes(b), a_sf, b_sf,
-                             alpha)
+                             alpha, out_dtype)
 
 
-def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha):
+def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha, out_dtype=torch.bfloat16):
     """K-major variant: at/bt packed u8 [K/2, M] / [K/2, N], e4m3 bytes
     [K/16, M] / [K/16, N]."""
-    return matmul_nvf4_bf16_tn(at.T, bt.T, a_sft.T, b_sft.T, alpha)
+    return matmul_nvf4_bf16_tn(at.T, bt.T, a_sft.T, b_sft.T, alpha, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -324,17 +334,17 @@ def fused_linear_nvf4_plain(x, wqt, wst, h, global_scale, alpha, *, rot_size: in
 
 def matmul_int8_rank1_plain(a_mk: torch.Tensor, b_nk: torch.Tensor,
                             sa: torch.Tensor, sb: torch.Tensor,
-                            alpha) -> torch.Tensor:
-    """C[M, N] = bf16(float(a' @ b'^T) * (sa[m] * alpha) * sb[n]) from
-    logical int8 views a_mk [M, K] and b_nk [N, K] (any strides).
+                            alpha, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """C[M, N] = out_dtype(float(a' @ b'^T) * (sa[m] * alpha) * sb[n])
+    from logical int8 views a_mk [M, K] and b_nk [N, K] (any strides).
 
-    The contraction runs in fp64, which is exact for |acc| <= 9216*K
+    The contraction runs in fp64, which is exact for |acc| <= 16129*K
     < 2^53 and has a matmul on every device (CUDA has no integer one);
     the epilogue multiplies in exactly the order of the JAX op.
     """
     acc = (a_mk.to(torch.float64) @ b_nk.to(torch.float64).T).to(torch.float32)
     al = as_alpha(alpha, acc.device)
-    return (acc * (sa[:, None] * al) * sb[None, :]).to(torch.bfloat16)
+    return (acc * (sa[:, None] * al) * sb[None, :]).to(check_out_dtype(out_dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -173,21 +173,22 @@ def prepare_weight_int8(wqt: torch.Tensor, wst: torch.Tensor):
 # int8 GEMM + rank-1 epilogue (kernel K3)
 # ---------------------------------------------------------------------------
 
-def matmul_mxf4_bf16_int8(a_i8, b_i8, sa, sb, alpha):
-    """a_i8 [M, K], b_i8 [N, K] (both from :func:`encode_int8`)."""
+def matmul_mxf4_bf16_int8(a_i8, b_i8, sa, sb, alpha, out_dtype=torch.bfloat16):
+    """a_i8 [M, K], b_i8 [N, K] (both from :func:`encode_int8`);
+    ``out_dtype`` bf16 or fp32 (no bf16 rounding), as in the JAX op."""
     return gemm_int8_rank1(a_i8, b_i8, sa, sb, alpha, a_kmajor=False,
-                           b_kmajor=False)
+                           b_kmajor=False, out_dtype=out_dtype)
 
 
-def matmul_mxf4_bf16_int8_kmajor(at_i8, b_i8, sa, sb, alpha):
+def matmul_mxf4_bf16_int8_kmajor(at_i8, b_i8, sa, sb, alpha, out_dtype=torch.bfloat16):
     """K-major activation: at_i8 [K, M] (as the K-major quantizer emits
     it), b_i8 [N, K] weights.  The main path's GEMM."""
     return gemm_int8_rank1(at_i8, b_i8, sa, sb, alpha, a_kmajor=True,
-                           b_kmajor=False)
+                           b_kmajor=False, out_dtype=out_dtype)
 
 
-def matmul_mxf4_bf16_int8_kk(at_i8, bt_i8, sa, sb, alpha):
+def matmul_mxf4_bf16_int8_kk(at_i8, bt_i8, sa, sb, alpha, out_dtype=torch.bfloat16):
     """Both operands K-major: at_i8 [K, M], bt_i8 [K, N].  The NVFP4
     int8 path's GEMM (weights from :func:`prepare_weight_nv_int8`)."""
     return gemm_int8_rank1(at_i8, bt_i8, sa, sb, alpha, a_kmajor=True,
-                           b_kmajor=True)
+                           b_kmajor=True, out_dtype=out_dtype)

@@ -109,6 +109,127 @@ def test_gemm_int8_rank1_kernel(dev, m, n, k):
         assert torch.equal(got, want)
 
 
+def _k3_operands(dev, m, n, k, order, seed=0):
+    """Random int8 a' [K, M] and b' [N, K] with |values| <= 127, in the
+    storage of ``order``: "nk" ([M, K], [N, K]), "kmajor" ([K, M], [N, K]),
+    "kk" ([K, M], [K, N]); returns (a, b, a', b', sa, sb)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    at = torch.randint(-127, 128, (k, m), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+    sa = torch.rand(m, generator=g, device=dev) + 0.01
+    sb = torch.rand(n, generator=g, device=dev) + 0.01
+    aa = at.T.contiguous() if order == "nk" else at
+    bb = b.T.contiguous() if order == "kk" else b
+    return aa, bb, at, b, sa, sb
+
+
+def _k3(aa, bb, sa, sb, alpha, order, out_dtype=torch.bfloat16):
+    return G.gemm_int8_rank1(aa, bb, sa, sb, alpha, a_kmajor=order != "nk",
+                             b_kmajor=order == "kk", out_dtype=out_dtype)
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 16, 17, 64, 129, 512])
+@pytest.mark.parametrize("order", ["nk", "kmajor", "kk"])
+def test_gemm_int8_rank1_both_kernels(dev, order, m):
+    """K3's decode (M <= 16) and prefill kernels bitwise against the plain
+    version at every N in {8, 1000, 1024, 12288} and K in {32, 96, 4096,
+    12288}: ragged tiles, split K, unaligned K-major rows."""
+    for n in (8, 1000, 1024, 12288):
+        for k in (32, 96, 4096, 12288):
+            aa, bb, at, b, sa, sb = _k3_operands(dev, m, n, k, order, seed=m + n + k)
+            got = _k3(aa, bb, sa, sb, 0.75, order)
+            want = G.gemm_int8_rank1_plain(at.T, b, sa, sb, 0.75)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (m, n, k, order, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("m", [4, 512])
+@pytest.mark.parametrize("order", ["nk", "kmajor", "kk"])
+@pytest.mark.parametrize("device_alpha", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_int8_rank1_out_dtype_and_alpha(dev, out_dtype, device_alpha, order, m):
+    """bf16 and fp32 outputs, alpha a host number or a CUDA tensor: bitwise
+    the plain version; the fp32 output rounds to the bf16 one."""
+    aa, bb, at, b, sa, sb = _k3_operands(dev, m, 1000, 4096, order, seed=3)
+    alpha = torch.tensor([0.37], device=dev) if device_alpha else 0.37
+    got = _k3(aa, bb, sa, sb, alpha, order, out_dtype)
+    want = G.gemm_int8_rank1_plain(at.T, b, sa, sb, alpha, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, want)
+    if out_dtype == torch.float32:
+        assert torch.equal(got.to(torch.bfloat16), _k3(aa, bb, sa, sb, alpha, order))
+
+
+@pytest.mark.parametrize("order", ["kmajor", "kk"])
+def test_gemm_int8_rank1_split_k_repeats(dev, order):
+    """At a split-K shape (16 slices of K = 4096 over N = 1024) two launches
+    give the same bits, and the kernel leaves its arrival counters zero."""
+    aa, bb, at, b, sa, sb = _k3_operands(dev, 4, 1024, 4096, order, seed=4)
+    kc, splits = G.decode_split(1024, 4096, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count, order == "kk")
+    assert splits > 1
+    y1, y2 = _k3(aa, bb, sa, sb, 0.5, order), _k3(aa, bb, sa, sb, 0.5, order)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(y1, G.gemm_int8_rank1_plain(at.T, b, sa, sb, 0.5))
+    assert all(int(c.abs().sum()) == 0 for c in G._counters.values())
+
+
+def test_gemm_int8_rank1_refuses_what_it_cannot_take(dev):
+    """A layout neither kernel takes raises and launches nothing; there is
+    no fallback to the plain version."""
+    aa, bb, _, _, sa, sb = _k3_operands(dev, 64, 96, 256, "nk", seed=5)
+    dispatch.reset_launch_counts()
+    strided = aa[:, ::2]                       # neither K-contiguous nor K-major
+    for fn in (lambda: G.gemm_int8_rank1(strided, bb[:, ::2], sa, sb, 1.0, a_kmajor=False,
+                                         b_kmajor=False),
+               lambda: G.gemm_int8_rank1(aa, bb, sa, sb, 1.0, a_kmajor=False, b_kmajor=False,
+                                         out_dtype=torch.float16)):
+        with pytest.raises(ValueError):
+            fn()
+    assert dispatch.launch_counts["gemm_int8_rank1"] == 0
+
+
+@pytest.mark.parametrize("m", [4, 64])
+def test_k2_k3_equal_k4_at_deficit_3(dev, m):
+    """The main path's kernels K2 (activation) and K3 equal the fp4 GEMM K4
+    on the same MXFP4 values in every row whose deficit is <= 3, through
+    the decode (M = 4) and the prefill (M = 64) kernel."""
+    h = qt.hadamard_matrix(32, device=dev)
+    x, w = _x(dev, m, 4096, seed=6), _x(dev, 1024, 4096, seed=7, scale=4096 ** -0.5)
+    ai, sa, sbytes = Q.quantize_mx_int8(x, h, rot_size=32)
+    xqt, xst = Q.quantize_mx(x, h, rot_size=32, layout="kmajor")
+    wqt, wst = Q.quantize_mx(w, h, rot_size=32, layout="kmajor")
+    wi, sb, dw = I8.prepare_weight_int8(wqt, wst)
+    y3 = I8.matmul_mxf4_bf16_int8_kmajor(ai, wi, sa, sb, 1.0)
+    y4 = G.gemm_fp4_mx(xqt, wqt, xst, wst, 1.0, layout="kmajor")
+    se = sbytes.to(torch.int32)
+    ai1 = I8.encode_int8(xqt, xst, kmajor=True)[0]      # K1's codes, encoded
+    rows = ((se.amax(0) - se).amax(0) <= 3) & (sbytes == xst).all(0) & (ai == ai1).all(0)
+    torch.cuda.synchronize()
+    assert int(dw) <= 3 and float(rows.float().mean()) >= 0.9
+    assert torch.equal(y3[rows], y4[rows])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_fp4_kernels_out_dtype(dev, out_dtype):
+    """K4 and K7 in bf16 and fp32 bitwise against their plain versions."""
+    h = qt.hadamard_matrix(32, device=dev)
+    x, w = _x(dev, 65, 1024, seed=8), _x(dev, 70, 1024, seed=9, scale=0.05)
+    xqt, xst = Q.quantize_mx(x, h, rot_size=32, layout="kmajor")
+    wqt, wst = Q.quantize_mx(w, h, rot_size=32, layout="kmajor")
+    got = G.gemm_fp4_mx(xqt, wqt, xst, wst, 0.625, layout="kmajor", out_dtype=out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, G.gemm_fp4_mx_plain(
+        xqt, wqt, xst, wst, 0.625, layout="kmajor", out_dtype=out_dtype))
+    gs = torch.tensor(40.0, device=dev)
+    nqt, nst = Q.quantize_nv(x, h, gs, rot_size=32, layout="kmajor")
+    mqt, mst = Q.quantize_nv(w, h, gs, rot_size=32, layout="kmajor")
+    al = torch.tensor([0.625], device=dev)
+    got = qt.matmul_nvf4_bf16_kmajor(nqt, mqt, nst, mst, al, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, G.gemm_fp4_nv_plain(
+        nqt, mqt, nst, mst, al, layout="kmajor", out_dtype=out_dtype))
+
+
 @pytest.mark.parametrize("m,n,k", [(4, 96, 512), (65, 70, 1024), (1, 33, 96)])
 def test_gemm_fp4_kernel_and_int8_agree(dev, m, n, k):
     h = qt.hadamard_matrix(32, device=dev)
@@ -394,7 +515,7 @@ def test_gemm_fp8_mx_kernel_public_ops(dev):
     assert float((o.ravel() @ ref.ravel()) / (o.norm() * ref.norm())) > 0.99
 
 
-@pytest.mark.parametrize("m", [96, 100, 4096])
+@pytest.mark.parametrize("m", [96, 100, 4096, 4, 13])
 def test_gemm_int8_rank1_backward_orders(dev, m):
     """K3 in the int8 backward's two orders, sb = 1 and alpha = 1: dgrad
     [M, N] x [K, N] and wgrad [N, M] x [K, M] with M zero-padded to 16."""

@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      order at the decode, prefill and QAT shapes, in bf16 and fp32,
      against its targets (bf16 ``torch.matmul`` at M <= 16,
      ``torch._int_mm`` above) and summed over a decode step, a prefill
-     and a QAT step; the QAT kernels
+     and a QAT step; K2 and K6 summed over an int8 decode step and a
+     prefill, beside the time of one launch on this card; the QAT kernels
      (K8-K11, K3 in the int8 backward's orders, and the training
      forward's K1 with the clip mask and K3) at the training shapes of
      phase 6, the backward-operand kernels K12-K15 at phase 7's, and the
@@ -296,8 +297,34 @@ def compare_k3(torch, results: dict, layers: int) -> None:
           f"nk x 2 layers): {tot:.3f} ms")
 
 
-def compare_kernels(torch, results: dict) -> None:
-    """K1-K4, the MXFP4 path's kernels."""
+# the activation quantizer's calls in a layer of Qwen3-8B: (K, calls); the
+# six projections at K = 4096 (q, k, v, o, gate, up) and down at 12288
+QUANT_CALLS = {4096: 6, 12288: 1}
+
+
+def quantizer_sums(torch, qtimes: dict, layers: int) -> None:
+    """K2's and K6's sums over an int8 decode step (batch 4) and a 512-row
+    prefill from the phase 2 times in ``qtimes`` ({(name, M, K): ms}),
+    beside the least time of one launch on this card: ``torch.cuda._sleep(0)``
+    timed as the kernels are (at decode the byte bound is far below it)."""
+    floor = timed_ms(torch, lambda: torch.cuda._sleep(0), 50)
+    print(f"phase 2 launch floor: one torch.cuda._sleep(0) launch {floor:.4f} ms "
+          f"(CUDA events, 50 launches back to back)")
+    for name, path in (("quantize_mx_int8", "K2, MX int8"), ("quantize_nv_int8", "K6, NV int8")):
+        for m in SHAPES_M:
+            what = f"decode step (batch {m})" if m <= 16 else f"{m}-row prefill"
+            per = ", ".join(f"K={k} {qtimes[name, m, k]:.4f} ms"
+                            + (f" ({qtimes[name, m, k] / floor:.1f}x the launch floor)"
+                               if m <= 16 else "")
+                            for k in QUANT_CALLS)
+            tot = layers * sum(c * qtimes[name, m, k] for k, c in QUANT_CALLS.items())
+            calls = " + ".join(f"{c} at K={k}" for k, c in QUANT_CALLS.items())
+            print(f"phase 2 {path} in a {what}, ({calls}) x {layers} layers: {tot:.3f} ms; "
+                  f"per call {per}")
+
+
+def compare_kernels(torch, results: dict, qtimes: dict) -> None:
+    """K1-K4, the MXFP4 path's kernels; K2's times go to ``qtimes``."""
     import qutlass_tpu_torch as qt
     from qutlass_tpu_torch.kernels import gemm as G
     from qutlass_tpu_torch.kernels import quantize as Q
@@ -352,6 +379,7 @@ def compare_kernels(torch, results: dict) -> None:
             plain = timed_ms(torch, lambda: Q.quantize_mx_int8_plain(x, h, rot_size=32))
             record("quantize_mx_int8", shape, err, ms, plain, f" a_mismatch={rate}",
                    quantize_bound(m, k, 1.0, 32, 4 * m))
+            qtimes["quantize_mx_int8", m, k] = ms
             acts[m, k] = (x, ga, gs)
 
     for k, n in SHAPES_KN:
@@ -401,8 +429,9 @@ def _ulp_diff(torch, a, b):
     return (ia != ib).float().mean().item(), (ia - ib).abs().max().item()
 
 
-def compare_nv_kernels(torch, results: dict) -> None:
-    """K5-K7 and K3 in the NV path's K-major x K-major order."""
+def compare_nv_kernels(torch, results: dict, qtimes: dict) -> None:
+    """K5-K7 and K3 in the NV path's K-major x K-major order; K6's times go
+    to ``qtimes``."""
     import qutlass_tpu_torch as qt
     from qutlass_tpu_torch.formats.codecs import e2m1_decode_f32
     from qutlass_tpu_torch.kernels import gemm as G
@@ -465,6 +494,7 @@ def compare_nv_kernels(torch, results: dict) -> None:
             record("quantize_nv_int8", shape, err, ms, plain,
                    f" scale_mismatch={srate} rows_with_equal_bytes={same.float().mean().item()}",
                    quantize_bound(m, k, 1.0, 16, 4 * m))
+            qtimes["quantize_nv_int8", m, k] = ms
             acts[m, k] = (x, gs, xq, ga, gsig)
 
     for k, n in SHAPES_KN:
@@ -1487,13 +1517,15 @@ def main() -> int:
                       "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
                       "bound_ms": None, "bound_by": None, "library_ms": None}
                for name, (src, rep) in KERNELS.items()}
-    compare_kernels(torch, results)
-    compare_nv_kernels(torch, results)
+    qtimes = {}
+    compare_kernels(torch, results, qtimes)
+    compare_nv_kernels(torch, results, qtimes)
     compare_qat_kernels(torch, results)
     compare_bwd_op_kernels(torch, results)
     compare_fused_linear_kernels(torch, results)
     from qutlass_tpu_torch.models import QWEN3_8B
     compare_k3(torch, results, QWEN3_8B.num_layers)
+    quantizer_sums(torch, qtimes, QWEN3_8B.num_layers)
 
     # phase 3
     t0 = time.perf_counter()

@@ -10,46 +10,24 @@
 // sigma = rowmax|v| * float32(1/127) (the JAX package's "/ 127.0" as XLA
 // compiles it) and a' = rtne(v * (1 / sigma)).
 //
-// What bounds it on the H100: bytes at prefill, and at decode (rows = 4)
-// the number of SMs that get work.  Each row needs its maximum |v| over
-// all of K before any a' can be written.  K2 (the MX twin) gives one block
-// all of a block of rows and walks K twice, so at decode one SM of 132
-// works.  This kernel splits K across blocks instead, in two launches on
-// the same grid of (row blocks) x (128-column chunks): 32 blocks at
-// K = 4096 and 96 at K = 12288 for 4 rows, 2048 and more at prefill.
-//   pass A  rotates its chunk, writes the chunk's scale bytes, and folds
-//           the chunk's contribution into the row maximum with one
-//           atomicMax per row on the fp32 bits (the values are >= 0, so
-//           their bits order as integers; the maximum is exact and so
-//           independent of the order of the blocks).  It needs no codes:
-//           e2m1 rounding is monotone, so a group's largest |v| is
-//           0.5 * s_g * m2(code(amax_g * mul_g)).
-//   pass B  recomputes the rotation (cheaper than a round trip of 4
-//           bytes per element), reads the group's byte back, and emits a'
-//           with sigma from the finished row maximum.
-// The scale arithmetic is the plain version's, in its order, with
-// __fmul_rn/__fdiv_rn/__fsqrt_rn.
-#include "common.cuh"
+// What bounds it on the H100: at decode (rows = 4) the launches, at
+// prefill the bytes.  The design is K2's (quantize_int8_tile.cuh): a grid
+// of (row tiles) x (128-column chunks), the rotation column in registers,
+// wide row tiles for the K-major stores, and a pass A that writes the
+// bytes and each element's m2 into a' and folds the row maximum of |v|
+// into a scratch [rows] with one atomicMax per row on the fp32 bits (the
+// values are >= 0, so their bits order as integers; the maximum is exact
+// and independent of the order of the blocks).  The encode launch
+// forms v = m2 * 0.5 * s_g again and scales it; two launches a call, on a
+// scratch that the encode's last block leaves zero.  The scale arithmetic is the plain version's, in its order,
+// with __fmul_rn/__fdiv_rn/__fsqrt_rn.
+#include "quantize_int8_tile.cuh"
 
 namespace {
 
-constexpr int TR = 8;        // rows per block
-constexpr int TK = 128;      // columns per block
-constexpr int THREADS = 256;
-constexpr int ASTRIDE = TR + 4;  // padded stride of the K-major a' tile
-constexpr float kInv127 = (float)(1.0 / 127.0);
+using namespace qi8;
 
-__device__ __forceinline__ void load_tile(__nv_bfloat16* h_s, __nv_bfloat16 (*x_s)[TK],
-                                          const __nv_bfloat16* h, const __nv_bfloat16* x,
-                                          int rot, int r0, int rows, int k, int k0, int kw,
-                                          int tid) {
-  for (int i = tid; i < rot * rot; i += THREADS) h_s[i] = h[i];
-#pragma unroll
-  for (int j = 0; j < TR * TK / THREADS; ++j) {
-    const int i = tid + j * THREADS, rr = i / TK, cc = i % TK, row = r0 + rr;
-    x_s[rr][cc] = (row < rows && cc < kw) ? x[(long long)row * k + k0 + cc] : __float2bfloat16(0.f);
-  }
-}
+constexpr float kInv127 = (float)(1.0 / 127.0);
 
 // 0.5 * decoded scale, 0 for a NaN byte (a dead group)
 __device__ __forceinline__ float half_scale(int byte) {
@@ -57,95 +35,114 @@ __device__ __forceinline__ float half_scale(int byte) {
   return s != s ? 0.f : __fmul_rn(0.5f, s);
 }
 
+// 1 / sigma of a row from the bits of its largest |v| (0 for a zero row)
+__device__ __forceinline__ float inv_sigma(int vmax_bits) {
+  const float sigma = __fmul_rn(__int_as_float(vmax_bits), kInv127);
+  return sigma > 0.f ? __fdiv_rn(1.f, sigma) : 0.f;
+}
+
+__device__ __forceinline__ int encode_nv(int m2, float inv, int byte) {
+  return __float2int_rn(__fmul_rn(__fmul_rn((float)m2, half_scale(byte)), inv));
+}
+
+template <int TR, int ROT>
 __global__ void __launch_bounds__(THREADS)
 quantize_nv_int8_pass_a(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ h,
-                        const float* __restrict__ gs_ptr, uint8_t* __restrict__ s,
-                        float* __restrict__ vmax, int rows, int k, int rot, int method) {
-  __shared__ __nv_bfloat16 h_s[128 * 128];
-  __shared__ __nv_bfloat16 x_s[TR][TK];
-  __shared__ int rmax_s[TR];
+                        const float* __restrict__ gs_ptr, int8_t* __restrict__ a,
+                        uint8_t* __restrict__ s, int* __restrict__ vmax, int rows, int k,
+                        int method) {
+  __shared__ __align__(16) __nv_bfloat16 x_s[TR][TK];
+  __shared__ int8_t a_s[TK][TR + 4];
+  __shared__ uint8_t s_s[TK / 16][TR];
+  __shared__ int vmax_s[TR];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gg = warp & 3;
   const int r0 = blockIdx.x * TR, k0 = blockIdx.y * TK;
-  const int kw = min(TK, k - k0);
+  const int kw = min(TK, k - k0), nr = min(TR, rows - r0);
+  const int col = gg * 32 + lane, hc = col % ROT;
   const float gs = *gs_ptr;
 
-  load_tile(h_s, x_s, h, x, rot, r0, rows, k, k0, kw, tid);
-  if (tid < TR) rmax_s[tid] = 0;
+  RotCol<ROT> hcol;
+  hcol.load(h, hc);
+  load_x_tile<TR>(x_s, x, r0, rows, k, k0, kw, tid);
+  if (tid < TR) vmax_s[tid] = 0;
   __syncthreads();
 
-  for (int p = warp; p < TR * 4; p += THREADS / 32) {
-    const int rr = p >> 2, gg = p & 3, row = r0 + rr;
-    if (row >= rows || gg * 32 >= kw) continue;  // warp-uniform
-    const int col = gg * 32 + lane;
-    const float v = qt::rotate_elem(x_s[rr], h_s, rot, col);
-    const int byte = qt::nv_group_byte(v, method, gs);
-    const float amax = qt::half_max(fabsf(v));
-    const float m2 = (float)qt::e2m1_m2(qt::e2m1_code(__fmul_rn(amax, qt::nv_mul(byte, method, gs))));
-    float c = col < kw ? __fmul_rn(m2, half_scale(byte)) : 0.f;
-    c = fmaxf(c, __shfl_xor_sync(0xFFFFFFFFu, c, 16));
-    if (lane == 0) atomicMax(&rmax_s[rr], __float_as_int(c));
-    if ((lane & 15) == 0 && col < kw) s[(long long)((k0 + col) >> 4) * rows + row] = (uint8_t)byte;
+  if (gg * 32 < kw) {  // warp-uniform; a half warp past kw (K % 32 == 16) reads zeros
+#pragma unroll
+    for (int j = 0; j < TR / 2; ++j) {
+      const int rr = (warp >> 2) + 2 * j;
+      if (rr < nr) {
+        const float v = hcol.rotate(&x_s[rr][col - hc]);
+        const int byte = qt::nv_group_byte(v, method, gs);
+        const int m2 = qt::e2m1_m2(qt::e2m1_code(__fmul_rn(v, qt::nv_mul(byte, method, gs))));
+        a_s[col][rr] = (int8_t)m2;
+        // |v| of the plain version, exact: |m2| <= 12 times 0.5 * s_g
+        const float c = qt::warp_max(col < kw ? __fmul_rn(fabsf((float)m2), half_scale(byte)) : 0.f);
+        if (lane == 0) atomicMax(&vmax_s[rr], __float_as_int(c));
+        if ((lane & 15) == 0) s_s[col >> 4][rr] = (uint8_t)byte;
+      }
+    }
   }
   __syncthreads();
-  if (tid < TR && r0 + tid < rows) atomicMax(reinterpret_cast<int*>(vmax) + r0 + tid, rmax_s[tid]);
+  store_a_tile<TR>(a, a_s, r0, nr, rows, k0, kw, tid);
+  if (tid < (TK / 16) * TR) {
+    const int g = tid / TR, rr = tid % TR;
+    if (g * 16 < kw && rr < nr) s[(long long)((k0 >> 4) + g) * rows + r0 + rr] = s_s[g][rr];
+  }
+  if (tid < nr) atomicMax(vmax + r0 + tid, vmax_s[tid]);
 }
 
+// a' = rtne(m2 * 0.5 * s_g * (1 / sigma)) and sigma; the last block to
+// finish zeroes the row maxima and the counter (vmax[rows]) for the next call
 __global__ void __launch_bounds__(THREADS)
-quantize_nv_int8_pass_b(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ h,
-                        const float* __restrict__ gs_ptr, const uint8_t* __restrict__ s,
-                        const float* __restrict__ vmax, int8_t* __restrict__ a,
-                        float* __restrict__ sigma_out, int rows, int k, int rot, int method) {
-  __shared__ __nv_bfloat16 h_s[128 * 128];
-  __shared__ __nv_bfloat16 x_s[TR][TK];
-  __shared__ int8_t a_s[TK][ASTRIDE];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * TR, k0 = blockIdx.y * TK;
-  const int kw = min(TK, k - k0);
-  const float gs = *gs_ptr;
-
-  load_tile(h_s, x_s, h, x, rot, r0, rows, k, k0, kw, tid);
-  __syncthreads();
-
-  for (int p = warp; p < TR * 4; p += THREADS / 32) {
-    const int rr = p >> 2, gg = p & 3, row = r0 + rr;
-    if (row >= rows || gg * 32 >= kw) continue;
-    const int col = gg * 32 + lane;
-    if (col >= kw) continue;  // no shuffles below
-    const float v = qt::rotate_elem(x_s[rr], h_s, rot, col);
-    const int byte = s[(long long)((k0 + col) >> 4) * rows + row];
-    const float m2 = (float)qt::e2m1_m2(qt::e2m1_code(__fmul_rn(v, qt::nv_mul(byte, method, gs))));
-    const float sigma = __fmul_rn(vmax[row], kInv127);
-    const float inv = sigma > 0.f ? __fdiv_rn(1.f, sigma) : 0.f;
-    a_s[col][rr] = (int8_t)__float2int_rn(__fmul_rn(__fmul_rn(m2, half_scale(byte)), inv));
-  }
-  __syncthreads();
-  for (int i = tid; i < TK * TR; i += THREADS) {
-    const int kk = i / TR, rr = i % TR, row = r0 + rr;
-    if (row < rows && kk < kw) a[(long long)(k0 + kk) * rows + row] = a_s[kk][rr];
-  }
-  if (blockIdx.y == 0 && tid < TR && r0 + tid < rows)
-    sigma_out[r0 + tid] = __fmul_rn(vmax[r0 + tid], kInv127);
+quantize_nv_int8_encode(int8_t* __restrict__ a, float* __restrict__ sigma,
+                        const uint8_t* __restrict__ s, int* __restrict__ vmax, int rows, int k) {
+  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long nt = (long long)gridDim.x * THREADS;
+  encode_flat(a, (long long)k * rows, rows, t, nt, [&](int m2, int kk, int r) {
+    return encode_nv(m2, inv_sigma(vmax[r]), __ldg(s + (long long)(kk >> 4) * rows + r));
+  });
+  for (long long r = t; r < rows; r += nt) sigma[r] = __fmul_rn(__int_as_float(vmax[r]), kInv127);
+  reset_when_last(vmax, vmax + rows, rows);
 }
+
+struct Args {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* h;
+  const float* gs;
+  int8_t* a;
+  float* sigma;
+  uint8_t* s;
+  int* vmax;
+  int rows, k, method;
+  cudaStream_t st;
+};
+
+template <int TR, int ROT>
+struct PassA {
+  static cudaError_t run(Args p) {
+    const dim3 grid((p.rows + TR - 1) / TR, (p.k + TK - 1) / TK);
+    quantize_nv_int8_pass_a<TR, ROT><<<grid, THREADS, 0, p.st>>>(p.x, p.h, p.gs, p.a, p.s, p.vmax,
+                                                                  p.rows, p.k, p.method);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace
 
-// vmax: fp32 [rows] scratch, zeroed here before pass A
+// scratch: int32 [rows + 1] that holds zeros (the fp32 bits of each row's
+// largest |v|, then the encode's arrival counter); the call leaves it
+// zero.  Two launches.
 extern "C" int qt_quantize_nv_int8(const void* x, const void* h, const void* gs, void* a,
-                                   void* sigma, void* s, void* vmax, int rows, int k, int rot,
+                                   void* sigma, void* s, void* scratch, int rows, int k, int rot,
                                    int method, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((rows + TR - 1) / TR, (k + TK - 1) / TK);
-  cudaError_t err = cudaMemsetAsync(vmax, 0, sizeof(float) * (size_t)rows, st);
+  const Args p{(const __nv_bfloat16*)x, (const __nv_bfloat16*)h, (const float*)gs, (int8_t*)a,
+               (float*)sigma, (uint8_t*)s, (int*)scratch, rows, k, method,
+               (cudaStream_t)stream};
+  const cudaError_t err = dispatch<PassA>(rows, rot, p);
   if (err != cudaSuccess) return (int)err;
-  quantize_nv_int8_pass_a<<<grid, THREADS, 0, st>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)h, (const float*)gs, (uint8_t*)s,
-      (float*)vmax, rows, k, rot, method);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  quantize_nv_int8_pass_b<<<grid, THREADS, 0, st>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)h, (const float*)gs, (const uint8_t*)s,
-      (const float*)vmax, (int8_t*)a, (float*)sigma, rows, k, rot, method);
+  quantize_nv_int8_encode<<<encode_blocks(rows, k), THREADS, 0, p.st>>>(p.a, p.sigma, p.s,
+                                                                        p.vmax, rows, k);
   return (int)cudaGetLastError();
 }

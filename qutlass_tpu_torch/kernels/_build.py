@@ -35,7 +35,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "qt_quantize_mx": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _LL,
                        _LL, _P],
-    "qt_quantize_mx_int8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qt_quantize_mx_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "qt_gemm_int8_rank1": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _F, _P, _I, _I,
                            _I, _I, _P, _P, _I, _P],
     "qt_gemm_fp4_mx": [_P, _LL, _LL, _I, _P, _LL, _LL, _P, _LL, _LL, _I, _P,

@@ -8,6 +8,12 @@ CUDA device to the kernel, which launches on the current stream into
 outputs allocated here.  A launch adds one to
 ``dispatch.launch_counts``.  The NV kernels read the global scale from
 device memory, so a scale computed on the card needs no host sync.
+
+K2 and K6 take the row maximum across blocks in an int32 scratch
+[rows + 1] that holds zeros on entry and that each call leaves zero (the
+last block of its encode launch resets it).  It is kept per (device,
+stream) and zeroed once, as K3's counters are, so a call is two
+launches, syncs nothing and replays in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from ..utils import round_up
 from . import _build
 
 _LAYOUTS = {"rowmajor": 0, "kmajor": 1, "kmajor_codes": 2}
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+_retired: list[torch.Tensor] = []   # outgrown scratch a captured graph may still use
 _METHODS = {"quest": 0, "abs_max": 1}
 
 
@@ -42,6 +50,19 @@ def _check(a: torch.Tensor, h: torch.Tensor, rot_size: int, method: str,
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _int8_scratch(dev: torch.device, rows: int) -> torch.Tensor:
+    """K2's / K6's zeroed int32 scratch (at least ``rows + 1``) for the
+    current stream of ``dev``; a larger one replaces it when ``rows``
+    outgrows it, and the old one stays allocated."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < rows + 1:
+        if buf is not None:
+            _retired.append(buf)
+        buf = _scratch[key] = torch.zeros(max(rows + 1, 1024), dtype=torch.int32, device=dev)
+    return buf
 
 
 def quantize_mx(a: torch.Tensor, h: torch.Tensor, *, rot_size: int,
@@ -97,7 +118,8 @@ def quantize_mx_int8(a: torch.Tensor, h: torch.Tensor, *, rot_size: int,
     s = torch.empty((k // 32, rows), dtype=torch.uint8, device=a.device)
     err = _build.library().qt_quantize_mx_int8(
         x.data_ptr(), hb.data_ptr(), ai.data_ptr(), sa.data_ptr(), s.data_ptr(),
-        rows, k, rot_size, _METHODS[method], _stream(a))
+        _int8_scratch(a.device, rows).data_ptr(), rows, k, rot_size, _METHODS[method],
+        _stream(a))
     _build.check(err, "quantize_mx_int8")
     dispatch.note_launch("quantize_mx_int8")
     return ai, sa, s
@@ -149,11 +171,10 @@ def quantize_nv_int8(a: torch.Tensor, h: torch.Tensor, global_scale, *,
     ai = torch.empty((k, rows), dtype=torch.int8, device=a.device)
     sigma = torch.empty((rows,), dtype=torch.float32, device=a.device)
     s = torch.empty((k // 16, rows), dtype=torch.uint8, device=a.device)
-    vmax = torch.empty((rows,), dtype=torch.float32, device=a.device)  # scratch
     err = _build.library().qt_quantize_nv_int8(
         x.data_ptr(), hb.data_ptr(), gs.data_ptr(), ai.data_ptr(),
-        sigma.data_ptr(), s.data_ptr(), vmax.data_ptr(), rows, k, rot_size,
-        _METHODS[method], _stream(a))
+        sigma.data_ptr(), s.data_ptr(), _int8_scratch(a.device, rows).data_ptr(), rows, k,
+        rot_size, _METHODS[method], _stream(a))
     _build.check(err, "quantize_nv_int8")
     dispatch.note_launch("quantize_nv_int8")
     return ai, sigma, s

@@ -79,16 +79,101 @@ def test_quantize_mx_kernel(dev, method, rot, shape, layout):
         assert (got[2] != want[2]).float().mean() <= 1e-4
 
 
-@pytest.mark.parametrize("rot,shape", [(16, (13, 1536)), (32, (13, 1536)),
-                                       (128, (13, 1536)), (32, (9, 160))])
+# K2 and K6 split K over a grid of (row tiles of 16 rows at rows <= 16, 32
+# above) x (128-column chunks): rows and K at the grid's edges (K = 160
+# gives a ragged last chunk), every rotation size that divides K; the
+# rows <= 16 calls run as one launch, the others as memset + two launches
+INT8_Q_CASES = ([(16, (13, 1536), "randn"), (32, (13, 1536), "randn"),
+                 (128, (13, 1536), "randn"), (32, (9, 160), "randn")]
+                + [(rot, (rows, k), "randn") for rows in (1, 4, 13, 33, 512)
+                   for k in (96, 160, 4096, 12288) for rot in (16, 32, 64, 128)
+                   if k % rot == 0]
+                + [(rot, shape, data) for data in ("binades", "zero_row")
+                   for rot, shape in ((32, (4, 4096)), (16, (33, 160)), (128, (40, 1024)))])
+
+
+def _x_int8(dev, rows, k, data, seed=1):
+    """Activations [rows, k]: seeded normal values; "binades": every
+    32-group scaled by 2^U(-12, 4), so a row's groups span more than 3
+    binades (deficit > 3: a' rounds); "zero_row": rows 0 and rows-1 zero."""
+    x = _x(dev, rows, k, seed=seed)
+    if data == "binades":
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        e = torch.randint(-12, 5, (rows, k // 32), generator=g, device=dev)
+        x = (x.float() * torch.exp2(e.float()).repeat_interleave(32, 1)).to(torch.bfloat16)
+    elif data == "zero_row":
+        x[0] = 0
+        x[-1] = 0
+    return x
+
+
+@pytest.mark.parametrize("rot,shape,data", INT8_Q_CASES)
 @pytest.mark.parametrize("method", ["quest", "abs_max"])
-def test_quantize_mx_int8_kernel(dev, method, rot, shape):
-    x, h = _x(dev, *shape, seed=1), qt.hadamard_matrix(rot, device=dev)
+def test_quantize_mx_int8_kernel(dev, method, rot, shape, data):
+    x, h = _x_int8(dev, *shape, data), qt.hadamard_matrix(rot, device=dev)
     ga, gs, gb = Q.quantize_mx_int8(x, h, rot_size=rot, method=method)
     wa, ws, wb = Q.quantize_mx_int8_plain(x, h, rot_size=rot, method=method)
     torch.cuda.synchronize()
     assert torch.equal(gb, wb) and torch.equal(gs, ws)
     assert (ga != wa).float().mean() <= 1e-4
+
+
+def _int8_quantizers(dev, rot):
+    h = qt.hadamard_matrix(rot, device=dev)
+    gs = torch.tensor([2688.0 / 5.0], device=dev)
+    return {"mx": (lambda x: Q.quantize_mx_int8(x, h, rot_size=rot),
+                   lambda x: Q.quantize_mx_int8_plain(x, h, rot_size=rot)),
+            "nv": (lambda x: Q.quantize_nv_int8(x, h, gs, rot_size=rot),
+                   lambda x: Q.quantize_nv_int8_plain(x, h, gs, rot_size=rot))}
+
+
+def _int8_q_equal(kind, got, want) -> bool:
+    """K2: bytes and row scales equal, a' within 1e-4; K6: bytes within
+    1e-4, a' and sigma equal where a row's bytes agree."""
+    (ga, gs, gb), (wa, ws, wb) = got, want
+    if kind == "mx":
+        return (torch.equal(gb, wb) and torch.equal(gs, ws)
+                and (ga != wa).float().mean().item() <= 1e-4)
+    same = (gb == wb).all(0)
+    return ((gb != wb).float().mean().item() <= 1e-4 and torch.equal(ga[:, same], wa[:, same])
+            and torch.equal(gs[same], ws[same]))
+
+
+@pytest.mark.parametrize("rows,k", [(4, 4096), (13, 160), (512, 1024)])
+@pytest.mark.parametrize("kind", ["mx", "nv"])
+def test_int8_quantizer_repeats_bitwise(dev, kind, rows, k):
+    """Two launches on one input give the same bits: the row maximum's
+    atomics may land in any order, and a one-launch call leaves its
+    scratch zero for the next."""
+    fn, _ = _int8_quantizers(dev, 32)[kind]
+    x = _x_int8(dev, rows, k, "binades", seed=5)
+    first = [t.clone() for t in fn(x)]
+    for _ in range(3):
+        again = fn(x)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("rows,k", [(4, 4096), (4, 12288), (512, 1024)])
+@pytest.mark.parametrize("kind", ["mx", "nv"])
+def test_int8_quantizer_in_cuda_graph(dev, kind, rows, k):
+    """A call captured in a CUDA graph and replayed on new inputs equals
+    the plain version: the scratch is reset on the stream (memset, or by
+    the last block of a one-launch call), never by the host."""
+    fn, plain = _int8_quantizers(dev, 32)[kind]
+    static_x = _x_int8(dev, rows, k, "randn", seed=7)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(static_x)                    # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn(static_x)
+    for seed, data in ((8, "randn"), (9, "binades"), (10, "zero_row")):
+        static_x.copy_(_x_int8(dev, rows, k, data, seed=seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _int8_q_equal(kind, out, plain(static_x))
 
 
 @pytest.mark.parametrize("m,n,k", [(4, 200, 512), (70, 64, 1024), (129, 130, 96),
@@ -270,11 +355,12 @@ def test_quantize_nv_kernel(dev, method, rot, shape, layout):
     assert (_codes(got[0], layout) != _codes(want[0], layout)).float().mean() <= 1e-4
 
 
-@pytest.mark.parametrize("rot,shape", [(16, (13, 1536)), (32, (4, 4096)),
-                                       (128, (13, 1536)), (16, (9, 48))])
+@pytest.mark.parametrize("rot,shape,data", [(16, (13, 1536), "randn"), (32, (4, 4096), "randn"),
+                                            (128, (13, 1536), "randn"), (16, (9, 48), "randn")]
+                         + INT8_Q_CASES[4:])
 @pytest.mark.parametrize("method", ["quest", "abs_max"])
-def test_quantize_nv_int8_kernel(dev, method, rot, shape):
-    x, h = _x(dev, *shape, seed=1), qt.hadamard_matrix(rot, device=dev)
+def test_quantize_nv_int8_kernel(dev, method, rot, shape, data):
+    x, h = _x_int8(dev, *shape, data), qt.hadamard_matrix(rot, device=dev)
     gs = torch.tensor([2688.0 / 5.0], device=dev)
     ga, gs_, gb = Q.quantize_nv_int8(x, h, gs, rot_size=rot, method=method)
     wa, ws, wb = Q.quantize_nv_int8_plain(x, h, gs, rot_size=rot, method=method)

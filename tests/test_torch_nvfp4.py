@@ -186,14 +186,27 @@ def test_nv_validation_errors(bad):
 # fusedQuantizeNvInt8 (plain version of K6) and the int8 encodes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("rot", ROTS)
+# the existing (80, 2048) inputs at every rotation, then the rows and K at
+# which the Hopper kernel K6 splits its grid, and rows whose groups span
+# more than 3 binades
+NV_INT8_CASES = ([pytest.param(rot, (80, 2048), "randn", id=str(rot)) for rot in ROTS]
+                 + [pytest.param(rot, (rows, k), data, id=f"{rot}-{rows}x{k}-{data}")
+                    for rot, (rows, k), data in
+                    [(32, (rows, k), "randn") for rows in (1, 4, 13) for k in (96, 160, 4096)]
+                    + [(32, (13, 4096), "binades"), (16, (4, 160), "binades")]])
+
+
+@pytest.mark.parametrize("rot,shape,data", NV_INT8_CASES)
 @pytest.mark.parametrize("method", ["abs_max", "quest"])
-def test_fused_quantize_nv_int8_matches_jax(method, rot):
+def test_fused_quantize_nv_int8_matches_jax(method, rot, shape, data):
     """Scale bytes at a mismatch rate <= 1e-4 (measured 0 at every rot
     and method); in every row whose bytes agree, a' and sigma are
     bitwise JAX's."""
     rng = np.random.default_rng(1)
-    x, h = randn_bf16(rng, 80, 2048), hadamard_np(rot)
+    x, h = randn_bf16(rng, *shape), hadamard_np(rot)
+    if data == "binades":
+        e = np.exp2(np.random.default_rng(3).integers(-12, 4, (shape[0], shape[1] // 32)))
+        x = (x.astype(np.float32) * e.repeat(32, axis=1)).astype(x.dtype)
     wa, ws, wb = q.fusedQuantizeNvInt8(jnp.asarray(x), jnp.asarray(h),
                                        jnp.float32(5.0), method=method)
     ga, gs, gb = qt.fusedQuantizeNvInt8(to_torch(x), to_torch(h), 5.0,

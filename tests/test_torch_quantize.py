@@ -55,10 +55,30 @@ def test_fused_quantize_mx_matches_jax_and_golden(method, rot, layout):
     np.testing.assert_array_equal(sb, ref["e8m0"])
 
 
-@pytest.mark.parametrize("rot", [16, 32, 64, 128])
+def _binades(x, rng):
+    """x with every 32-group scaled by 2^U(-12, 3): a row's groups span
+    more than 3 binades, so its deficit is > 3 and a' rounds."""
+    e = np.exp2(rng.integers(-12, 4, (x.shape[0], x.shape[1] // 32))).repeat(32, axis=1)
+    return (x.astype(np.float32) * e).astype(x.dtype)
+
+
+# the existing (80, 1024) inputs at every rotation, then the rows and K at
+# which the Hopper kernels K2 / K6 split their grid (rows 1, 4 and 13 in
+# one row tile; K = 160 ends in a ragged 32-column chunk), and rows whose
+# deficit is > 3
+INT8_CASES = ([pytest.param(rot, (80, 1024), "randn", id=str(rot)) for rot in (16, 32, 64, 128)]
+              + [pytest.param(rot, (rows, k), data, id=f"{rot}-{rows}x{k}-{data}")
+                 for rot, (rows, k), data in
+                 [(32, (rows, k), "randn") for rows in (1, 4, 13) for k in (96, 160, 4096)]
+                 + [(32, (13, 4096), "binades"), (16, (4, 160), "binades")]])
+
+
+@pytest.mark.parametrize("rot,shape,data", INT8_CASES)
 @pytest.mark.parametrize("method", ["quest", "abs_max"])
-def test_fused_quantize_mx_int8_matches_jax(method, rot):
-    x, h = _inputs(rot, seed=1, shape=(80, 1024))
+def test_fused_quantize_mx_int8_matches_jax(method, rot, shape, data):
+    x, h = _inputs(rot, seed=1, shape=shape)
+    if data == "binades":
+        x = _binades(x, np.random.default_rng(3))
     wa, ws, wb = q.fusedQuantizeMxInt8(jnp.asarray(x), jnp.asarray(h),
                                        method=method)
     ga, gs, gb = qt.fusedQuantizeMxInt8(to_torch(x), to_torch(h), method=method)

@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero before the result lines:
      against its targets (bf16 ``torch.matmul`` at M <= 16,
      ``torch._int_mm`` above) and summed over a decode step, a prefill
      and a QAT step; K2 and K6 summed over an int8 decode step and a
-     prefill, beside the time of one launch on this card; the QAT kernels
+     prefill, beside the time of one launch on this card; K7 (bitwise at
+     M = 4 through its split-K decode kernel) summed over an NV fp4
+     decode step and a prefill, beside the step's weight byte bound and
+     launch floor; the QAT kernels
      (K8-K11, K3 in the int8 backward's orders, and the training
      forward's K1 with the clip mask and K3) at the training shapes of
      phase 6, the backward-operand kernels K12-K15 at phase 7's, and the
@@ -28,7 +31,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      stored as packed fp4
   5. NVFP4 serving, the same requests: int8-stored weights with the
      exact per-call activation scale, then with calibrated static
-     scales, each checked against a replay, then fp4-stored weights
+     scales, then fp4-stored weights (K7's decode kernel at every decode
+     step), each timed and checked against a step-by-step replay
   6. Quartet QAT training at Qwen3-8B MLP width: the QAT example's MLP
      (4096 -> 12288 -> 4096, ``QuartetLinear``) on 4096-token batches,
      10 Adam steps in each grad mode with falling loss, gradient
@@ -92,6 +96,8 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
                          "qutlass_tpu/kernels/quantize.py:719"),
     "gemm_fp4_nv": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
                     "qutlass_tpu/kernels/gemm.py:193"),
+    "gemm_fp4_nv_decode": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
+                           "qutlass_tpu/kernels/gemm.py:193"),
     "square_double_scaled": ("qutlass_tpu_torch/csrc/square_double.cu",
                              "qutlass_tpu/kernels/backward.py:324"),
     "square_double_mxfp8": ("qutlass_tpu_torch/csrc/square_double.cu",
@@ -323,6 +329,29 @@ def quantizer_sums(torch, qtimes: dict, layers: int) -> None:
                   f"per call {per}")
 
 
+# the linears of a layer of Qwen3-8B as (K, N): calls a layer; q and o,
+# k and v, gate and up, down
+LAYER_KN = {(4096, 4096): 2, (4096, 1024): 2, (4096, 12288): 2, (12288, 4096): 1}
+
+
+def k7_sums(torch, ktimes: dict, layers: int) -> None:
+    """K7's sum over an NV fp4 decode step (batch 4) and a 512-row prefill
+    from the phase 2 times in ``ktimes`` ({(name, M, K, N): ms}), beside the
+    byte bound of the step's weights (0.5625 byte an element) and the
+    launch floor of its 7 x ``layers`` calls."""
+    floor = timed_ms(torch, lambda: torch.cuda._sleep(0), 50)
+    calls = layers * sum(LAYER_KN.values())
+    weight_bytes = layers * sum(c * k * n * 9 / 16 for (k, n), c in LAYER_KN.items())
+    for m in SHAPES_M:
+        what = f"NV fp4 decode step (batch {m})" if m <= 16 else f"{m}-row NV fp4 prefill"
+        tot = layers * sum(c * ktimes["gemm_fp4_nv", m, k, n] for (k, n), c in LAYER_KN.items())
+        per = ", ".join(f"(K, N)=({k}, {n}) {ktimes['gemm_fp4_nv', m, k, n]:.4f} ms"
+                        for k, n in LAYER_KN)
+        print(f"phase 2 K7 in an {what}, 7 linears x {layers} layers ({calls} calls): "
+              f"{tot:.3f} ms; weight byte bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, "
+              f"launch floor {calls} x {floor:.4f} = {calls * floor:.3f} ms; per call {per}")
+
+
 def compare_kernels(torch, results: dict, qtimes: dict) -> None:
     """K1-K4, the MXFP4 path's kernels; K2's times go to ``qtimes``."""
     import qutlass_tpu_torch as qt
@@ -429,9 +458,9 @@ def _ulp_diff(torch, a, b):
     return (ia != ib).float().mean().item(), (ia - ib).abs().max().item()
 
 
-def compare_nv_kernels(torch, results: dict, qtimes: dict) -> None:
+def compare_nv_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None:
     """K5-K7 and K3 in the NV path's K-major x K-major order; K6's times go
-    to ``qtimes``."""
+    to ``qtimes``, K7's to ``ktimes``."""
     import qutlass_tpu_torch as qt
     from qutlass_tpu_torch.formats.codecs import e2m1_decode_f32
     from qutlass_tpu_torch.kernels import gemm as G
@@ -441,6 +470,7 @@ def compare_nv_kernels(torch, results: dict, qtimes: dict) -> None:
     from qutlass_tpu_torch.ops import int8path as I8
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(1)
     h = qt.hadamard_matrix(ROT, device=dev)
     record = _recorder(results)
@@ -511,21 +541,35 @@ def compare_nv_kernels(torch, results: dict, qtimes: dict) -> None:
             _check_k3(torch, G, ai.T, wi.T, sa, sb, alpha,
                       lambda od: I8.matmul_mxf4_bf16_int8_kk(ai, wi, sa, sb, alpha, od),
                       f"kk (NV int8 weights [K, N]) at {shape}")
-            # K7: the NV fp4-weight GEMM
+            # K7: the NV fp4-weight GEMM (its decode kernel at M <= 16)
             y7 = G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha, layout="kmajor")
             want7 = G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha, layout="kmajor")
             rate, ulps = _ulp_diff(torch, y7, want7)
             require(rate <= CODE_BUDGET and ulps <= 1,
                     f"K7 vs plain: mismatch {rate}, {ulps} ulp at {shape}")
+            extra = f" mismatch={rate} max_ulp={ulps}"
+            if m <= G.DECODE_M:
+                # the split-K decode kernel adds exact fp64 terms in another
+                # order: bitwise, in bf16 and fp32
+                y32 = G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha, layout="kmajor",
+                                    out_dtype=torch.float32)
+                w32 = G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha, layout="kmajor",
+                                          out_dtype=torch.float32)
+                require(torch.equal(y7, want7) and torch.equal(y32, w32),
+                        f"K7's decode kernel differs from its plain version at {shape}")
+                extra += f" decode kernel, splits {G.nv_decode_split(m, n, k, sms)}, bf16 and " \
+                         f"fp32 bitwise"
             err = (y7.float() - want7.float()).abs().max().item()
             ms = timed_ms(torch, lambda: G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha,
                                                        layout="kmajor"))
             plain = timed_ms(torch, lambda: G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha,
                                                                 layout="kmajor"))
-            record("gemm_fp4_nv", shape, err, ms, plain,
-                   f" mismatch={rate} max_ulp={ulps}",
-                   gemm_bound(m, n, k, m * k // 2 + m * k // 16, n * k // 2 + n * k // 16,
-                              "bf16"))
+            bnd = gemm_bound(m, n, k, m * k // 2 + m * k // 16, n * k // 2 + n * k // 16, "bf16")
+            record("gemm_fp4_nv", shape, err, ms, plain, extra, bnd)
+            ktimes["gemm_fp4_nv", m, k, n] = ms
+            if (m, k, n) == (SHAPES_M[0], *TIMED[1:]):    # the decode row of the JSON line
+                results["gemm_fp4_nv_decode"].update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
+                                                     bound_by=bnd[1], max_abs_err=err)
     # the reference-parity drive at tests/test_nvfp4.py's shape: row-major
     # quantize + matmul_nvf4_bf16_tn, bitwise
     m, n, k = 504, 512, 2048
@@ -889,7 +933,8 @@ def _compose_nv(G, Q, x, h, gsx, wqt, wst, alpha, kw):
 # ---------------------------------------------------------------------------
 
 MX_PATH = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1", "gemm_fp4_mx")
-NV_PATH = ("quantize_nv", "quantize_nv_int8", "gemm_int8_rank1", "gemm_fp4_nv")
+NV_PATH = ("quantize_nv", "quantize_nv_int8", "gemm_int8_rank1", "gemm_fp4_nv",
+           "gemm_fp4_nv_decode")
 
 
 def sync_ms(torch, t0):
@@ -1076,9 +1121,9 @@ def serve_nv(torch, layers: int, steps: int, prof: bool = False) -> dict:
     calib_ms = sync_ms(torch, t0)
     static = run_and_replay(torch, M, cfg, w_int8, prompt, h, lengths, max_len, steps,
                             "phase 5 NV int8 static gsx")
-    run = dict(quantized=True, lengths=lengths)
-    logits4, _ = M.prefill(cfg, w_fp4, prompt, h, max_len=max_len, **run)
-    toks4 = M.generate(cfg, w_fp4, prompt, h, steps=steps, max_len=max_len, **run)
+    fp4 = run_and_replay(torch, M, cfg, w_fp4, prompt, h, lengths, max_len, steps,
+                         "phase 5 NV fp4")
+    logits4, toks4 = fp4[0], fp4[1]
     torch.cuda.synchronize()
     counts = dict(dispatch.launch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1089,8 +1134,10 @@ def serve_nv(torch, layers: int, steps: int, prof: bool = False) -> dict:
     # each activation row likewise; fp4 storage evaluates the NVFP4 values
     # exactly, and 36 random-weight W4A4 layers amplify the difference
     require(cos4 > 0.9, f"NV fp4-stored vs int8-stored prefill logits cosine {cos4}")
-    for tag, (_, _, pre, dec, gen_ms) in (("exact gsx", exact), ("static gsx", static)):
-        print(f"phase 5 NV int8 weights, {tag}: prefill {pre:.1f} ms for {sum(LENS)} prompt "
+    for tag, (_, _, pre, dec, gen_ms) in (("int8 weights, exact gsx", exact),
+                                          ("int8 weights, static gsx", static),
+                                          ("fp4 weights, exact gsx", fp4)):
+        print(f"phase 5 NV {tag}: prefill {pre:.1f} ms for {sum(LENS)} prompt "
               f"tokens (4 ragged requests, lengths {LENS}), decode {dec:.2f} ms/step "
               f"(batch 4, {steps} steps), generate {gen_ms:.1f} ms; host clock after a "
               f"warm-up; tokens equal the replay")
@@ -1106,7 +1153,7 @@ def serve_nv(torch, layers: int, steps: int, prof: bool = False) -> dict:
     if prof:
         profile_path(torch, M, cfg, w_int8, prompt, h, lengths, max_len, "NV int8 static",
                      static[3])
-        profile_path(torch, M, cfg, w_fp4, prompt, h, lengths, max_len, "NV fp4")
+        profile_path(torch, M, cfg, w_fp4, prompt, h, lengths, max_len, "NV fp4", fp4[3])
     return counts
 
 
@@ -1517,15 +1564,16 @@ def main() -> int:
                       "launches": 0, "max_abs_err": 0.0, "ms": None, "plain_ms": None,
                       "bound_ms": None, "bound_by": None, "library_ms": None}
                for name, (src, rep) in KERNELS.items()}
-    qtimes = {}
+    qtimes, ktimes = {}, {}
     compare_kernels(torch, results, qtimes)
-    compare_nv_kernels(torch, results, qtimes)
+    compare_nv_kernels(torch, results, qtimes, ktimes)
     compare_qat_kernels(torch, results)
     compare_bwd_op_kernels(torch, results)
     compare_fused_linear_kernels(torch, results)
     from qutlass_tpu_torch.models import QWEN3_8B
     compare_k3(torch, results, QWEN3_8B.num_layers)
     quantizer_sums(torch, qtimes, QWEN3_8B.num_layers)
+    k7_sums(torch, ktimes, QWEN3_8B.num_layers)
 
     # phase 3
     t0 = time.perf_counter()

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "qt_quantize_nv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _P],
     "qt_quantize_nv_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "qt_gemm_fp4_nv": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,
-                       _P, _P, _I, _I, _I, _I, _P],
+                       _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     "qt_square_double": [_P, _P, _P, _P, _I, _I, _I, _P],
     "qt_mxfp4_transpose_mxfp8": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _P],
     "qt_mxfp4_transpose_scaled_kmajor": [_P, _P, _P, _I, _I, _P],

@@ -17,6 +17,12 @@ kernel, which splits K over blocks (``decode_split``) and adds the int32
 partial sums in a workspace allocated here, with one counter a column
 tile that the kernel leaves zero (kept per device and stream, so two
 streams never share one); above it the prefill kernel.
+
+K7 is two kernels too: in the ``kmajor`` layout up to ``DECODE_M`` rows
+its decode kernel, which splits K over blocks (``nv_decode_split``) and
+adds exact fp64 partial sums in a workspace allocated here, with the
+same per-stream counters; every other call the tile kernel.  A decode
+launch counts as ``gemm_fp4_nv`` and also as ``gemm_fp4_nv_decode``.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from . import _build
 DECODE_M = 16            # K3's decode kernel takes M <= 16 rows
 _DECODE_MAX_KC = 2048    # its K slices are at most this long
 _counters: dict[tuple[int, int], torch.Tensor] = {}
+_NV_DECODE_BLOCKS = 2    # K7's decode grid: resident blocks an SM
 
 _NV_PLAIN = {"tn": _emu.matmul_nvf4_bf16_tn,
              "kmajor": _emu.matmul_nvf4_bf16_kmajor}
@@ -73,6 +80,28 @@ def decode_split(n: int, k: int, sms: int, kmajor_weight: bool) -> tuple[int, in
     return kc, -(-k // kc)
 
 
+def nv_decode_cols(m: int) -> int:
+    """Columns a block of K7's decode kernel owns at M = m rows: 32
+    threads of 16 / MB columns, MB = 4, 8 or 16 the least bucket holding m
+    (a thread keeps MB x columns fp64 sums)."""
+    return 32 * (16 // (4 if m <= 4 else 8 if m <= 8 else 16))
+
+
+def nv_decode_split(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """(K slice length, number of slices) of K7's decode kernel: as many
+    slices as keep every block resident at once (two 256-thread blocks an
+    SM, no tail wave), but no more than keep the fp64 partial sums
+    (slices x M x N x 8 bytes) within a quarter of the weight's bytes (N x
+    K x 0.5625); slices a multiple of 128 (a 16-group for each of the
+    block's 8 warps) and at most 2048 long."""
+    tiles = -(-n // nv_decode_cols(m))
+    want = max(1, _NV_DECODE_BLOCKS * sms // tiles)
+    cap = max(1, k * 9 // (16 * 4 * 8 * m))
+    kc = -(-k // min(want, cap))
+    kc = min(_DECODE_MAX_KC, max(128, -(-kc // 128) * 128))
+    return kc, -(-k // kc)
+
+
 def _int8_strides(name: str, t: torch.Tensor) -> tuple[int, int]:
     """The (row, k) strides K3 is given for a logical [rows, K] int8 view:
     K-contiguous with 16-byte aligned rows and K % 16 == 0, or K-major
@@ -88,12 +117,14 @@ def _int8_strides(name: str, t: torch.Tensor) -> tuple[int, int]:
 
 
 def _decode_counters(dev: torch.device, tiles: int) -> torch.Tensor:
-    """K3's zeroed arrival counters for the current stream of ``dev``."""
+    """The zeroed arrival counters of K3's and K7's decode kernels for the
+    current stream of ``dev`` (launches on one stream run in order, and
+    each leaves the counters zero)."""
     stream = torch.cuda.current_stream(dev)
     key = (dev.index, stream.cuda_stream)
     cnt = _counters.get(key)
     if cnt is None or cnt.numel() < tiles:
-        cnt = _counters[key] = torch.zeros(max(tiles, 256), dtype=torch.int32, device=dev)
+        cnt = _counters[key] = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
     return cnt
 
 
@@ -215,6 +246,9 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     ``layout="tn"``: a/b packed u8 [M, K/2] / [N, K/2], scales [M, K/16]
     / [N, K/16].  ``"kmajor"``: a/b packed [K/2, M] / [K/2, N], scales
     [K/16, M] / [K/16, N].  ``alpha``: a number or a 1-element tensor.
+    ``kmajor`` at M <= ``DECODE_M`` runs the decode kernel, which takes
+    a weight and scales of unit stride along N and K % 16 == 0; anything
+    else raises there.
     """
     if layout not in _NV_PLAIN:
         raise ValueError(f"invalid layout {layout!r}")
@@ -236,15 +270,31 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     if tuple(as_r.shape) != (m, k // 16) or tuple(bs_r.shape) != (n, k // 16):
         raise ValueError(f"scale shapes {tuple(a_sf.shape)} / {tuple(b_sf.shape)} "
                          f"do not match M={m}, N={n}, K={k} ({layout})")
+    part = cnt = None
+    kc = 0
+    decode = not tn and m <= DECODE_M
+    if decode:
+        if b_r.stride(0) != 1 or bs_r.stride(0) != 1 or k % 16:
+            raise ValueError(f"K7's decode kernel takes a weight and scales of unit stride "
+                             f"along N and K % 16 == 0; got b strides {b.stride()}, b_sf "
+                             f"strides {b_sf.stride()}, K={k}")
+        kc, splits = nv_decode_split(m, n, k, torch.cuda.get_device_properties(a.device)
+                                     .multi_processor_count)
+        part = torch.empty((splits, m, n), dtype=torch.float64, device=a.device)
+        cnt = _decode_counters(a.device, -(-n // nv_decode_cols(m)))
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.library().qt_gemm_fp4_nv(
         a_r.data_ptr(), a_r.stride(0), a_r.stride(1),
         as_r.data_ptr(), as_r.stride(0), as_r.stride(1),
         b_r.data_ptr(), b_r.stride(0), b_r.stride(1),
         bs_r.data_ptr(), bs_r.stride(0), bs_r.stride(1),
-        al.data_ptr(), c.data_ptr(), int(out_dtype == torch.float32), m, n, k, _stream(a))
+        al.data_ptr(), c.data_ptr(), int(out_dtype == torch.float32), m, n, k,
+        None if part is None else part.data_ptr(), None if cnt is None else cnt.data_ptr(),
+        kc, _stream(a))
     _build.check(err, "gemm_fp4_nv")
     dispatch.note_launch("gemm_fp4_nv")
+    if decode:
+        dispatch.note_launch("gemm_fp4_nv_decode")
     return c
 
 

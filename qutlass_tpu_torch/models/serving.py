@@ -130,7 +130,12 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator | None = None
                   top_p: float = 1.0) -> torch.Tensor:
     """Sample token ids [B] from logits [B, V]: temperature 0 is greedy
     argmax; top_k keeps the k highest logits (0 = all); top_p keeps the
-    smallest prefix of the sorted distribution reaching top_p."""
+    smallest prefix of the sorted distribution reaching top_p.
+
+    The ids are int64, where the JAX package's ``sample_logits`` returns
+    int32: ``torch.argmax`` and ``torch.multinomial`` give int64, the type
+    torch indexes with (the embedding lookup and the cache writes take
+    the ids as they are).  Compare values, not dtypes, with JAX."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     logits = logits.to(torch.float32) / temperature
@@ -170,6 +175,10 @@ def generate(cfg: ModelConfig, params: dict, prompt: torch.Tensor, h=None, *,
     exit).  ``lengths`` [B] serves right-padded ragged prompts.
     ``return_logprobs=True`` also returns each emitted token's
     log-probability under the untempered softmax (0.0 after EOS).
+
+    The tokens are int64 (``sample_logits``'s ids), where the JAX
+    package's ``generate`` returns int32: int64 is the type torch indexes
+    the embedding and the cache with.
 
     The cache writes are validated here on the host, so an undersized
     ``max_len`` or bad ``lengths`` raise instead of writing out of range.

@@ -18,7 +18,10 @@ quartet_linear step on the card within cosine 0.9999 of the CPU step
 (K1's codes and cuBLAS's sums differ from the CPU's in order); K16 and
 K17 bitwise against the composition on the card (K1 + K4, K5 + K7) and
 against their plain versions in every row whose quantized activation
-the plain quantizer gives bit for bit.
+the plain quantizer gives bit for bit; K7's split-K decode kernel (M <=
+16) bitwise against its plain version (its fp64 sums of exact group
+terms are exact for the scale bytes it is given, so the split order
+moves no bit), NaN positions aside where a NaN scale byte is given.
 """
 import pytest
 import torch
@@ -387,6 +390,140 @@ def test_gemm_fp4_nv_kernel(dev, m, n, k):
                                 xst.T.contiguous(), wst.T.contiguous(), 0.37)
     torch.cuda.synchronize()
     assert torch.equal(tn, got)
+
+
+def _nv_operands(dev, m, n, k, seed):
+    """Random K-major NVFP4 operands: packed codes (every code, both zeros
+    included) [K/2, M] / [K/2, N] and e4m3 scale bytes [K/16, M] / [K/16,
+    N] of either sign with exponent fields 5..11, so that every fp64 sum of
+    group terms is exact."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def scales(*shape):
+        e = torch.randint(5, 12, shape, generator=g, device=dev, dtype=torch.uint8)
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8) & 0x87 | e << 3
+    codes = [torch.randint(0, 256, (k // 2, r), generator=g, device=dev, dtype=torch.uint8)
+             for r in (m, n)]
+    return codes[0], codes[1], scales(k // 16, m), scales(k // 16, n)
+
+
+def _k7_decode(at, bt, ast, bst, alpha, out_dtype=torch.bfloat16):
+    """K7 in the K-major layout and the launches of its decode kernel."""
+    before = dispatch.launch_counts["gemm_fp4_nv_decode"]
+    y = G.gemm_fp4_nv(at, bt, ast, bst, alpha, layout="kmajor", out_dtype=out_dtype)
+    return y, dispatch.launch_counts["gemm_fp4_nv_decode"] - before
+
+
+def _nan_equal(got, want) -> bool:
+    """The same NaN positions, and the same bits everywhere else."""
+    gn, wn = torch.isnan(got.float()), torch.isnan(want.float())
+    return bool(torch.equal(gn, wn)) and bool(torch.equal(got[~gn], want[~wn]))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", [(48, 33), (96, 200), (4096, 1024), (4096, 12288), (12288, 4096)])
+@pytest.mark.parametrize("m", [1, 4, 13, 16])
+def test_gemm_fp4_nv_decode_kernel(dev, m, n, k, out_dtype):
+    """K7's split-K decode kernel (M <= 16, K-major) bitwise against its
+    plain version, alpha on the card: ragged N and K, unaligned rows (N =
+    33), one slice and many."""
+    at, bt, ast, bst = _nv_operands(dev, m, n, k, seed=m + n + k)
+    alpha = torch.tensor([0.37], device=dev)
+    got, launched = _k7_decode(at, bt, ast, bst, alpha, out_dtype)
+    want = G.gemm_fp4_nv_plain(at, bt, ast, bst, alpha, layout="kmajor", out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert launched == 1 and got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [17, 64])
+def test_gemm_fp4_nv_above_16_rows_and_tn_run_the_tile_kernel(dev, m):
+    """M > 16 and the row-major (tn) layout at any M run the tile kernel:
+    no decode launch, bitwise the plain version."""
+    at, bt, ast, bst = _nv_operands(dev, m, 200, 4096, seed=m)
+    got, launched = _k7_decode(at, bt, ast, bst, 0.37)
+    want = G.gemm_fp4_nv_plain(at, bt, ast, bst, 0.37, layout="kmajor")
+    a4, a4s = at[:, :4].T.contiguous(), ast[:, :4].T.contiguous()
+    before = dispatch.launch_counts["gemm_fp4_nv_decode"]
+    tn = G.gemm_fp4_nv(a4, bt.T.contiguous(), a4s, bst.T.contiguous(), 0.37, layout="tn")
+    torch.cuda.synchronize()
+    assert launched == 0 and dispatch.launch_counts["gemm_fp4_nv_decode"] == before
+    assert torch.equal(got, want) and torch.equal(tn, want[:4])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_fp4_nv_decode_kernel_nan_and_zero_scales(dev, out_dtype):
+    """NaN scale bytes (0x7F, 0xFF) give NaN in their row or column, zero
+    scale bytes (0x00, 0x80) zero terms, as in the plain version and in
+    the tile kernel (the tn layout), at one slice and at several."""
+    for k in (512, 8192):
+        at, bt, ast, bst = _nv_operands(dev, 4, 200, k, seed=k)
+        ast[3, 1], bst[5, 7], bst[k // 16 - 1, 150] = 0x7F, 0xFF, 0x7F
+        ast[6, :], bst[:, 11], bst[2, 13], ast[:, 2] = 0, 0, 0x80, 0
+        got, launched = _k7_decode(at, bt, ast, bst, 0.5, out_dtype)
+        want = G.gemm_fp4_nv_plain(at, bt, ast, bst, 0.5, layout="kmajor", out_dtype=out_dtype)
+        tile = G.gemm_fp4_nv(at.T.contiguous(), bt.T.contiguous(), ast.T.contiguous(),
+                             bst.T.contiguous(), 0.5, layout="tn").to(out_dtype)
+        torch.cuda.synchronize()
+        assert launched == 1 and _nan_equal(got, want)
+        nan = torch.isnan(got.float())
+        assert bool(nan[1].all()) and bool(nan[:, 7].all()) and bool(nan[:, 150].all())
+        assert int(nan.sum()) == 200 + 2 * 4 - 2
+        assert bool((got[~nan[:, 0]][:, 11] == 0).all()) and bool((got[2][~nan[2]] == 0).all())
+        if out_dtype == torch.bfloat16:
+            assert torch.equal(got.view(torch.int16), tile.view(torch.int16))
+
+
+def test_gemm_fp4_nv_decode_kernel_repeats_bitwise(dev):
+    """At many slices, launches land in any order yet give the same bits,
+    and leave every arrival counter zero."""
+    at, bt, ast, bst = _nv_operands(dev, 4, 1024, 4096, seed=9)
+    kc, splits = G.nv_decode_split(4, 1024, 4096, torch.cuda.get_device_properties(dev)
+                                   .multi_processor_count)
+    assert splits > 1
+    first = _k7_decode(at, bt, ast, bst, 0.75)[0]
+    for _ in range(3):
+        assert torch.equal(_k7_decode(at, bt, ast, bst, 0.75)[0], first)
+    torch.cuda.synchronize()
+    assert torch.equal(first, G.gemm_fp4_nv_plain(at, bt, ast, bst, 0.75, layout="kmajor"))
+    assert all(int(c.abs().sum()) == 0 for c in G._counters.values())
+
+
+@pytest.mark.parametrize("k,n", [(4096, 12288), (12288, 4096)])
+def test_gemm_fp4_nv_decode_kernel_in_cuda_graph(dev, k, n):
+    """A decode call captured in a CUDA graph and replayed on new inputs
+    equals the plain version: the counters are reset by the kernel and
+    alpha is read on the card, so nothing waits on the host."""
+    ops = list(_nv_operands(dev, 4, n, k, seed=1))
+    alpha = torch.tensor([0.37], device=dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        G.gemm_fp4_nv(*ops, alpha, layout="kmajor")          # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = G.gemm_fp4_nv(*ops, alpha, layout="kmajor")
+    for seed in (2, 3):
+        for t, new in zip(ops, _nv_operands(dev, 4, n, k, seed=seed)):
+            t.copy_(new)
+        alpha.fill_(0.25 * seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, G.gemm_fp4_nv_plain(*ops, alpha, layout="kmajor"))
+
+
+def test_gemm_fp4_nv_decode_kernel_refuses_what_it_cannot_take(dev):
+    """At M <= 16 in the K-major layout, a weight or weight scales without
+    unit stride along N raise and launch nothing; there is no fallback to
+    the tile kernel or the plain version."""
+    at, bt, ast, bst = _nv_operands(dev, 4, 128, 512, seed=4)
+    wide = torch.zeros((256, 256), dtype=torch.uint8, device=dev)
+    swide = torch.zeros((32, 256), dtype=torch.uint8, device=dev)
+    dispatch.reset_launch_counts()
+    for b, bs in ((wide[:, ::2], bst), (bt, swide[:, ::2]), (bt.T.contiguous().T, bst)):
+        with pytest.raises(ValueError):
+            G.gemm_fp4_nv(at, b, ast, bs, 1.0, layout="kmajor")
+    assert dispatch.launch_counts["gemm_fp4_nv"] == 0
 
 
 @pytest.mark.parametrize("m,n,k", [(4, 200, 512), (70, 64, 1024)])

@@ -207,6 +207,24 @@ def test_sample_logits_controls():
                for _ in range(16))
 
 
+@pytest.mark.parametrize("temperature,top_k,top_p", [(0.0, 0, 1.0), (1.0, 1, 1.0),
+                                                     (0.7, 1, 0.9), (1.0, 0, 1e-6),
+                                                     (2.0, 3, 1e-6)])
+def test_sample_logits_values_match_jax(temperature, top_k, top_p):
+    """On the same logits, where the controls leave one candidate per row,
+    the port's token ids equal JAX's in value; the port returns int64 (the
+    type torch indexes with) where JAX returns int32."""
+    from qutlass_tpu.models import sample_logits as j_sample_logits
+    logits = np.random.default_rng(3).standard_normal((4, 97)).astype(np.float32) * 3
+    want = np.asarray(j_sample_logits(jnp.asarray(logits), jax.random.PRNGKey(0),
+                                      temperature=temperature, top_k=top_k, top_p=top_p))
+    got = M.sample_logits(torch.from_numpy(logits), torch.Generator().manual_seed(0),
+                          temperature=temperature, top_k=top_k, top_p=top_p)
+    assert want.dtype == np.int32 and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    np.testing.assert_array_equal(got.numpy(), logits.argmax(-1))
+
+
 def test_quantized_linear_module(setup):
     w = setup["params"]["layers"][0]["q_proj"]
     h = to_torch(setup["h"])

@@ -9,7 +9,9 @@ Tolerances, each restated in its test:
     <= 1e-4 (the two frameworks sum the rotation in different orders);
     against the fp64 golden, the budgets of tests/test_nvfp4.py (2e-2
     scale bytes, 1e-1 dequant values).
-  * int8 encodes and the NVFP4 GEMM given the same bytes: bitwise.
+  * int8 encodes and the NVFP4 GEMM given the same bytes: bitwise; at
+    decode row counts also the K-major form and a model of the decode
+    kernel's split-K order of sums.
   * NV linear against JAX's ``_linear``: cosine > 0.999; output norm
     within 0.8-1.25 of x @ w.T.
 """
@@ -29,8 +31,10 @@ from qutlass_tpu_torch import models as M
 from qutlass_tpu_torch import utils
 from qutlass_tpu_torch.formats import codecs as C
 from qutlass_tpu_torch.models import convert, serving
+from qutlass_tpu_torch.kernels import gemm as KG
 from qutlass_tpu_torch.nn import QuantizedLinear, nv_linear, quantize_weight
 from qutlass_tpu_torch.ops import dispatch
+from qutlass_tpu_torch.ops import emulation as E
 from qutlass_tpu_torch.ops import int8path as I8
 from torch_helpers import cosine, hadamard_np, randn_bf16, to_np, to_torch
 
@@ -269,6 +273,118 @@ def test_matmul_nvf4_bitwise_to_jax_and_fp64(method, rot):
     km = qt.matmul_nvf4_bf16_kmajor(ta.T.contiguous(), tb.T.contiguous(),
                                     to_torch(asf.T.copy()), to_torch(bsf.T.copy()), 1.0)
     assert torch.equal(km, got)
+
+
+# the decode shapes of Qwen3-8B's linears: (K, N) of q/o, k/v, gate/up, down
+QWEN3_8B_DECODE_KN = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
+DECODE_ROWS = [1, 4, 13, 16]
+
+
+def _nv_kmajor_operands(m, n, k, seed, rot=32):
+    """JAX-quantized K-major NVFP4 operands (abs-max, exact global scales)
+    of rotated random rows: (JAX arrays, the same as CPU tensors)."""
+    rng = np.random.default_rng(seed)
+    h = jnp.asarray(hadamard_np(rot))
+    x, w = randn_bf16(rng, m, k), randn_bf16(rng, n, k, scale=k ** -0.5)
+    gx = jnp.asarray([448.0 * 6 / float(np.abs(x.astype(np.float32)).max())], jnp.float32)
+    gw = jnp.asarray([448.0 * 6 / float(np.abs(w.astype(np.float32)).max())], jnp.float32)
+    ops = (*q.fusedQuantizeNv(jnp.asarray(x), h, gx, method="abs_max", layout="kmajor"),
+           *q.fusedQuantizeNv(jnp.asarray(w), h, gw, method="abs_max", layout="kmajor"))
+    aqt, ast, bqt, bst = ops
+    return (aqt, bqt, ast, bst), tuple(to_torch(t) for t in (aqt, bqt, ast, bst))
+
+
+@pytest.mark.parametrize("m", DECODE_ROWS)
+@pytest.mark.parametrize("k,n", QWEN3_8B_DECODE_KN)
+def test_nv_decode_split_invariants(k, n, m):
+    """K7's decode grid at every Qwen3-8B decode shape and 1-132 SMs: K
+    slices a multiple of 128 (a 16-group for each of a block's 8 warps),
+    at most 2048 long, covering K once (the last slice holds at least one
+    group); the fp64 partial sums, slices x M x N x 8 bytes, at most a
+    quarter of the weight's N x K x 0.5625 bytes; the column tile holds
+    the fp64 sums of at most 16 outputs a thread."""
+    cols = KG.nv_decode_cols(m)
+    assert cols * (4 if m <= 4 else 8 if m <= 8 else 16) == 32 * 16 and cols % 32 == 0
+    for sms in range(1, 133):
+        kc, splits = KG.nv_decode_split(m, n, k, sms)
+        assert kc % 128 == 0 and 128 <= kc <= 2048
+        assert (splits - 1) * kc < k <= splits * kc
+        assert splits * m * n * 8 <= n * k * 0.5625 / 4
+
+
+@pytest.mark.parametrize("m", DECODE_ROWS)
+@pytest.mark.parametrize("k", [16, 48, 96, 2064, 20480])
+def test_nv_decode_split_ragged_k(k, m):
+    """Small and ragged K (K % 16 == 0): one slice covers K below 128, and
+    every slice count covers K once."""
+    for sms in (1, 8, 132):
+        kc, splits = KG.nv_decode_split(m, 33, k, sms)
+        assert kc % 128 == 0 and kc <= 2048 and (splits - 1) * kc < k <= splits * kc
+        assert splits == 1 or k > 128
+
+
+@pytest.mark.parametrize("m", DECODE_ROWS)
+def test_matmul_nvf4_kmajor_decode_rows_bitwise_to_jax_and_fp64(m):
+    """At decode row counts, on rotated data: the port's K-major NVFP4 GEMM
+    (the plain version of K7, which the decode kernel is held to on the
+    card) equals JAX's ``matmul_nvf4_bf16_kmajor`` bit for bit, and bf16
+    of the fp64 dequant product times alpha, in bf16 and fp32 out."""
+    n, k = 200, 512
+    jops, tops = _nv_kmajor_operands(m, n, k, seed=40 + m)
+    want = q.matmul_nvf4_bf16_kmajor(*jops, jnp.asarray([0.37], jnp.float32))
+    got = qt.matmul_nvf4_bf16_kmajor(*tops, torch.tensor([0.37]))
+    np.testing.assert_array_equal(to_np(got).view(np.uint16), np.asarray(want).view(np.uint16))
+    aqt, bqt, ast, bst = (np.asarray(t) for t in jops)
+    dq = lambda p, s: (G.unpack_fp4(p.T.copy()).reshape(-1, 16)
+                       * G.e4m3_to_f64(s.T.copy()).reshape(-1, 1)).reshape(p.shape[1], k)
+    ref = (dq(aqt, ast) @ dq(bqt, bst).T).astype(np.float32) * np.float32(0.37)
+    np.testing.assert_array_equal(to_np(got).view(np.uint16),
+                                  ref.astype(ml_dtypes.bfloat16).view(np.uint16))
+    got32 = qt.matmul_nvf4_bf16_kmajor(*tops, torch.tensor([0.37]), out_dtype=torch.float32)
+    np.testing.assert_array_equal(got32.numpy().view(np.int32), ref.view(np.int32))
+
+
+def _decode_kernel_order(aqt, bqt, ast, bst, alpha, sms, out_dtype=torch.bfloat16):
+    """K7's decode kernel's order of sums, in fp64 on the CPU: each group
+    term fp32(fp32(p * sa) * sb), p the exact group sum; warp w of a slice
+    adds the slice's groups w, w + 8, ... in turn; the block adds its 8
+    warps in order, and the last block the slices in order; one rounding
+    to fp32, times alpha in fp32."""
+    k, m, n = aqt.shape[0] * 2, aqt.shape[1], bqt.shape[1]
+    kc, splits = KG.nv_decode_split(m, n, k, sms)
+    av = C.e2m1_decode_f32(E.unpack_codes(aqt.T)).double().reshape(m, k // 16, 16)
+    bv = C.e2m1_decode_f32(E.unpack_codes(bqt.T)).double().reshape(n, k // 16, 16)
+    p = torch.einsum("mgi,ngi->mng", av, bv).float()          # exact group sums
+    sa, sb = C.e4m3_decode_f32(ast.T), C.e4m3_decode_f32(bst.T)  # [m, G], [n, G]
+    terms = ((p * sa[:, None, :]) * sb[None, :, :]).double()     # exact, fp32 products
+    total = torch.zeros((m, n), dtype=torch.float64)
+    for s in range(splits):
+        g0, g1 = s * kc // 16, min(k, (s + 1) * kc) // 16
+        block = torch.zeros((m, n), dtype=torch.float64)
+        for w in range(8):
+            acc = torch.zeros((m, n), dtype=torch.float64)
+            for g in range(g0 + w, g1, 8):
+                acc = acc + terms[:, :, g]
+            block = block + acc
+        total = total + block
+    return (total.float() * torch.tensor(alpha, dtype=torch.float32)).to(out_dtype)
+
+
+@pytest.mark.parametrize("sms", [1, 16, 132])
+@pytest.mark.parametrize("m", DECODE_ROWS)
+def test_decode_kernel_order_equals_the_plain_version(m, sms):
+    """A model of the decode kernel's order (fp64 group terms folded per
+    warp, per K slice, then the slices in order) equals the plain version
+    bit for bit on rotated data with several slices: the group terms are
+    exact multiples of 2^-20 and their fp64 sums exact, so no order moves
+    a bit."""
+    n, k = 96, 4096
+    _, (aqt, bqt, ast, bst) = _nv_kmajor_operands(m, n, k, seed=60 + m)
+    assert KG.nv_decode_split(m, n, k, sms)[1] > 1
+    for od in (torch.bfloat16, torch.float32):
+        want = E.matmul_nvf4_bf16_kmajor(aqt, bqt, ast, bst, torch.tensor([0.37]), od)
+        got = _decode_kernel_order(aqt, bqt, ast, bst, 0.37, sms, od)
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,11 @@ Phases, in order; any failure exits non-zero before the result lines:
      against its targets (bf16 ``torch.matmul`` at M <= 16,
      ``torch._int_mm`` above) and summed over a decode step, a prefill
      and a QAT step; K2 and K6 summed over an int8 decode step and a
-     prefill, beside the time of one launch on this card; K7 (bitwise at
-     M = 4 through its split-K decode kernel) summed over an NV fp4
-     decode step and a prefill, beside the step's weight byte bound and
-     launch floor; the QAT kernels
+     prefill, beside the time of one launch on this card; K7 (bitwise,
+     bf16 and fp32, at M = 4 through its split-K decode kernel and at M =
+     64 and 512 through its prefill kernel) summed over an NV fp4 decode
+     step and a prefill, beside the step's weight byte bound, launch
+     floor and (prefill) fp64 fold floor; the QAT kernels
      (K8-K11, K3 in the int8 backward's orders, and the training
      forward's K1 with the clip mask and K3) at the training shapes of
      phase 6, the backward-operand kernels K12-K15 at phase 7's, and the
@@ -32,7 +33,8 @@ Phases, in order; any failure exits non-zero before the result lines:
   5. NVFP4 serving, the same requests: int8-stored weights with the
      exact per-call activation scale, then with calibrated static
      scales, then fp4-stored weights (K7's decode kernel at every decode
-     step), each timed and checked against a step-by-step replay
+     step, its prefill kernel at the prefill), each timed and checked
+     against a step-by-step replay
   6. Quartet QAT training at Qwen3-8B MLP width: the QAT example's MLP
      (4096 -> 12288 -> 4096, ``QuartetLinear``) on 4096-token batches,
      10 Adam steps in each grad mode with falling loss, gradient
@@ -78,6 +80,7 @@ ROOT = Path(__file__).resolve().parent
 SHAPES_M = (4, 512)
 SHAPES_KN = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
 TIMED = (512, 4096, 12288)          # (M, K, N) whose times go to the JSON line
+K7_SMALL_M = 64                     # phase 8's small prefill, K7 checked there too
 CODE_BUDGET = 1e-4
 STEPS = 32                          # greedy tokens per request
 LENS = [128, 96, 64, 17]            # the ragged requests' prompt lengths
@@ -98,6 +101,8 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
                     "qutlass_tpu/kernels/gemm.py:193"),
     "gemm_fp4_nv_decode": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
                            "qutlass_tpu/kernels/gemm.py:193"),
+    "gemm_fp4_nv_prefill": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
+                            "qutlass_tpu/kernels/gemm.py:193"),
     "square_double_scaled": ("qutlass_tpu_torch/csrc/square_double.cu",
                              "qutlass_tpu/kernels/backward.py:324"),
     "square_double_mxfp8": ("qutlass_tpu_torch/csrc/square_double.cu",
@@ -120,10 +125,14 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
                         "qutlass_tpu/kernels/fused_linear.py:144"),
 }
 # the H100 SXM's published peaks: HBM3 rate, dense bf16, fp8 and int8 tensor
-# cores, and fp32 on the CUDA cores (printed beside a bound, never one: the
-# least time of a bf16 rotation is the tensor cores')
+# cores, and fp32 and fp64 on the CUDA cores (printed beside a bound, never
+# one: the least time of a bf16 rotation is the tensor cores'; K7's prefill
+# kernel folds its exact group sums with fp64 FMAs, a floor of its design).
+# e2m1 values (doubled) are exact in int8 and fp8, so a GEMM of fp4 operands
+# is bounded at the int8 peak
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp8": 1979e12, "int8": 1979e12, "fp32": 67e12,
+                  "fp64": 33.5e12}
 ROT = 32
 
 
@@ -334,11 +343,18 @@ def quantizer_sums(torch, qtimes: dict, layers: int) -> None:
 LAYER_KN = {(4096, 4096): 2, (4096, 1024): 2, (4096, 12288): 2, (12288, 4096): 1}
 
 
+def fold_floor_ms(m: int, n: int, k: int) -> float:
+    """The least time of K7's prefill kernel's fp64 fold: two fp64 FMAs
+    (four operations) an output and 16-group, at the fp64 peak."""
+    return 4 * m * n * (k // 16) / PEAK_OPS_PER_S["fp64"] * 1e3
+
+
 def k7_sums(torch, ktimes: dict, layers: int) -> None:
     """K7's sum over an NV fp4 decode step (batch 4) and a 512-row prefill
     from the phase 2 times in ``ktimes`` ({(name, M, K, N): ms}), beside the
-    byte bound of the step's weights (0.5625 byte an element) and the
-    launch floor of its 7 x ``layers`` calls."""
+    byte bound of the step's weights (0.5625 byte an element), the launch
+    floor of its 7 x ``layers`` calls and, at the prefill, the floor of the
+    prefill kernel's fp64 fold."""
     floor = timed_ms(torch, lambda: torch.cuda._sleep(0), 50)
     calls = layers * sum(LAYER_KN.values())
     weight_bytes = layers * sum(c * k * n * 9 / 16 for (k, n), c in LAYER_KN.items())
@@ -347,9 +363,11 @@ def k7_sums(torch, ktimes: dict, layers: int) -> None:
         tot = layers * sum(c * ktimes["gemm_fp4_nv", m, k, n] for (k, n), c in LAYER_KN.items())
         per = ", ".join(f"(K, N)=({k}, {n}) {ktimes['gemm_fp4_nv', m, k, n]:.4f} ms"
                         for k, n in LAYER_KN)
+        fold = "" if m <= 16 else ", fp64 fold floor " + \
+            f"{layers * sum(c * fold_floor_ms(m, n, k) for (k, n), c in LAYER_KN.items()):.3f} ms"
         print(f"phase 2 K7 in an {what}, 7 linears x {layers} layers ({calls} calls): "
               f"{tot:.3f} ms; weight byte bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, "
-              f"launch floor {calls} x {floor:.4f} = {calls * floor:.3f} ms; per call {per}")
+              f"launch floor {calls} x {floor:.4f} = {calls * floor:.3f} ms{fold}; per call {per}")
 
 
 def compare_kernels(torch, results: dict, qtimes: dict) -> None:
@@ -440,7 +458,7 @@ def compare_kernels(torch, results: dict, qtimes: dict) -> None:
                                                                 layout="kmajor"))
             record("gemm_fp4_mx", shape, 0.0, ms, plain, f" vs_K3={same}",
                    gemm_bound(m, n, k, m * k // 2 + m * k // 32, n * k // 2 + n * k // 32,
-                              "bf16"))
+                              "int8"))
     # the reference-parity drive: row-major quantize + matmul_mxf4_bf16_tn
     m, k, n = 512, 4096, 4096
     xq, xs = check_quantize(randn(m, k), "rowmajor", (m, k, None), False)
@@ -466,6 +484,7 @@ def compare_nv_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None
     from qutlass_tpu_torch.kernels import gemm as G
     from qutlass_tpu_torch.kernels import quantize as Q
     from qutlass_tpu_torch.nn import linear as L
+    from qutlass_tpu_torch.ops import dispatch
     from qutlass_tpu_torch.ops import emulation as E
     from qutlass_tpu_torch.ops import int8path as I8
 
@@ -527,59 +546,78 @@ def compare_nv_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None
             qtimes["quantize_nv_int8", m, k] = ms
             acts[m, k] = (x, gs, xq, ga, gsig)
 
+    # phase 8's small prefill: K7's prefill kernel at 64 rows too
+    for k in sorted({k for k, _ in SHAPES_KN}):
+        x = randn(K7_SMALL_M, k)
+        gs = gscale(x)
+        acts[K7_SMALL_M, k] = (x, gs, check_quantize(x, gs, "kmajor", (K7_SMALL_M, k, None),
+                                                     False))
     for k, n in SHAPES_KN:
         w = randn(n, k, scale=k ** -0.5)
         gw = gscale(w)
         wqt, wst = check_quantize(w, gw, "kmajor", (None, k, n), False)
         wi, sb = I8.prepare_weight_nv_int8(wqt, wst)
-        for m in SHAPES_M:
+        for m in (*SHAPES_M, K7_SMALL_M):
             shape = (m, k, n)
-            x, gx, (xqt, xst), ai, sa = acts[m, k]
+            x, gx, (xqt, xst), *int8_act = acts[m, k]
             alpha = 1.0 / (gx * gw)                      # on the card, as on the path
-            # K3 in the K-major x K-major order of NV int8 weights, alpha on
-            # the card (timed in compare_k3)
-            _check_k3(torch, G, ai.T, wi.T, sa, sb, alpha,
-                      lambda od: I8.matmul_mxf4_bf16_int8_kk(ai, wi, sa, sb, alpha, od),
-                      f"kk (NV int8 weights [K, N]) at {shape}")
-            # K7: the NV fp4-weight GEMM (its decode kernel at M <= 16)
+            if int8_act:
+                # K3 in the K-major x K-major order of NV int8 weights, alpha
+                # on the card (timed in compare_k3)
+                ai, sa = int8_act
+                _check_k3(torch, G, ai.T, wi.T, sa, sb, alpha,
+                          lambda od: I8.matmul_mxf4_bf16_int8_kk(ai, wi, sa, sb, alpha, od),
+                          f"kk (NV int8 weights [K, N]) at {shape}")
+            # K7: the NV fp4-weight GEMM, its decode kernel at M <= 16 (exact
+            # fp64 terms in another order) and its prefill kernel above (the
+            # same terms in the same order): bitwise, in bf16 and fp32
+            kernel = "gemm_fp4_nv_decode" if m <= G.DECODE_M else "gemm_fp4_nv_prefill"
+            before = dispatch.launch_counts[kernel]
             y7 = G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha, layout="kmajor")
+            y32 = G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha, layout="kmajor",
+                                out_dtype=torch.float32)
             want7 = G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha, layout="kmajor")
-            rate, ulps = _ulp_diff(torch, y7, want7)
-            require(rate <= CODE_BUDGET and ulps <= 1,
-                    f"K7 vs plain: mismatch {rate}, {ulps} ulp at {shape}")
-            extra = f" mismatch={rate} max_ulp={ulps}"
+            w32 = G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha, layout="kmajor",
+                                      out_dtype=torch.float32)
+            require(dispatch.launch_counts[kernel] == before + 2, f"K7 did not run {kernel}")
+            require(torch.equal(y7, want7) and torch.equal(y32, w32),
+                    f"K7's {kernel} differs from its plain version at {shape}")
+            extra = f" {kernel}, bf16 and fp32 bitwise"
             if m <= G.DECODE_M:
-                # the split-K decode kernel adds exact fp64 terms in another
-                # order: bitwise, in bf16 and fp32
-                y32 = G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha, layout="kmajor",
-                                    out_dtype=torch.float32)
-                w32 = G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha, layout="kmajor",
-                                          out_dtype=torch.float32)
-                require(torch.equal(y7, want7) and torch.equal(y32, w32),
-                        f"K7's decode kernel differs from its plain version at {shape}")
-                extra += f" decode kernel, splits {G.nv_decode_split(m, n, k, sms)}, bf16 and " \
-                         f"fp32 bitwise"
+                extra += f", splits {G.nv_decode_split(m, n, k, sms)}"
             err = (y7.float() - want7.float()).abs().max().item()
             ms = timed_ms(torch, lambda: G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha,
                                                        layout="kmajor"))
             plain = timed_ms(torch, lambda: G.gemm_fp4_nv_plain(xqt, wqt, xst, wst, alpha,
                                                                 layout="kmajor"))
-            bnd = gemm_bound(m, n, k, m * k // 2 + m * k // 16, n * k // 2 + n * k // 16, "bf16")
+            bnd = gemm_bound(m, n, k, m * k // 2 + m * k // 16, n * k // 2 + n * k // 16, "int8")
+            if m > G.DECODE_M:
+                extra += f" fp64_fold_floor_ms={fold_floor_ms(m, n, k):.6f}"
+            if (m, k, n) == TIMED:
+                # for scale, not a yardstick: bf16 torch.matmul of the decoded
+                # operands (another function: bf16 rounding and fp32 sums)
+                xd = E.dequant_nvfp4(E.unpack_codes(xqt.T), xst.T).to(torch.bfloat16)
+                wd = E.dequant_nvfp4(E.unpack_codes(wqt.T), wst.T).to(torch.bfloat16)
+                extra += f" torch_bf16_matmul_ms={timed_ms(torch, lambda: xd @ wd.T):.4f}"
+                del xd, wd
             record("gemm_fp4_nv", shape, err, ms, plain, extra, bnd)
             ktimes["gemm_fp4_nv", m, k, n] = ms
-            if (m, k, n) == (SHAPES_M[0], *TIMED[1:]):    # the decode row of the JSON line
-                results["gemm_fp4_nv_decode"].update(ms=ms, plain_ms=plain, bound_ms=bnd[0],
-                                                     bound_by=bnd[1], max_abs_err=err)
+            r = results[kernel]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if (m, k, n) in (TIMED, (SHAPES_M[0], *TIMED[1:])):   # the kernel's row of the JSON line
+                r.update(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1])
     # the reference-parity drive at tests/test_nvfp4.py's shape: row-major
-    # quantize + matmul_nvf4_bf16_tn, bitwise
+    # quantize + matmul_nvf4_bf16_tn (K7's prefill kernel), bitwise
     m, n, k = 504, 512, 2048
     one = torch.tensor([1.0], device=dev)
     aq, asf = check_quantize(randn(m, k, scale=25.0), one, "rowmajor", (m, k, None), False)
     bq, bsf = check_quantize(randn(n, k, scale=25.0), one, "rowmajor", (n, k, None), False)
+    before = dispatch.launch_counts["gemm_fp4_nv_prefill"]
     y = qt.matmul_nvf4_bf16_tn(aq, bq, asf, bsf, one)
     want = G.gemm_fp4_nv_plain(aq, bq, asf[:m, :k // 16], bsf[:n, :k // 16], one, layout="tn")
-    require(torch.equal(y, want), "K7 tn layout differs from its plain version")
-    record("gemm_fp4_nv", (m, k, n), 0.0, extra=" layout=tn bitwise")
+    require(torch.equal(y, want) and dispatch.launch_counts["gemm_fp4_nv_prefill"] == before + 1,
+            "K7 tn layout differs from its plain version or did not run the prefill kernel")
+    record("gemm_fp4_nv", (m, k, n), 0.0, extra=" layout=tn gemm_fp4_nv_prefill bitwise")
 
 
 # ---------------------------------------------------------------------------
@@ -908,7 +946,10 @@ def compare_fused_linear_kernels(torch, results: dict) -> None:
             iters = 3 if m > 512 else 10      # ~0.1 s a call at M = 4096
             ms, plain_ms = timed_ms(torch, fn, iters), timed_ms(torch, plain_fn, min(iters, 5))
             comp_ms = timed_ms(torch, comp_fn, iters)
-            bnd = bound(2 * m * k + n * k // 2 + scale_bytes + 2 * m * n, 2 * m * n * k, "bf16")
+            # the fp4 GEMM at the int8 peak, the bf16 rotation (2 * ROT * m * k) at
+            # half of it
+            bnd = bound(2 * m * k + n * k // 2 + scale_bytes + 2 * m * n,
+                        2 * m * n * k + 4 * ROT * m * k, "int8")
             if (m, k, n) == TIMED and (name == "fused_linear_nv" or method == "quest"):
                 results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
             print(f"phase 2 {name} {method} M,K,N={(m, k, n)} max_abs_err=0.0 ms={ms:.4f} "
@@ -934,7 +975,7 @@ def _compose_nv(G, Q, x, h, gsx, wqt, wst, alpha, kw):
 
 MX_PATH = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1", "gemm_fp4_mx")
 NV_PATH = ("quantize_nv", "quantize_nv_int8", "gemm_int8_rank1", "gemm_fp4_nv",
-           "gemm_fp4_nv_decode")
+           "gemm_fp4_nv_decode", "gemm_fp4_nv_prefill")
 
 
 def sync_ms(torch, t0):

@@ -21,8 +21,11 @@ streams never share one); above it the prefill kernel.
 K7 is two kernels too: in the ``kmajor`` layout up to ``DECODE_M`` rows
 its decode kernel, which splits K over blocks (``nv_decode_split``) and
 adds exact fp64 partial sums in a workspace allocated here, with the
-same per-stream counters; every other call the tile kernel.  A decode
-launch counts as ``gemm_fp4_nv`` and also as ``gemm_fp4_nv_decode``.
+same per-stream counters; every other call (``tn`` at any M, ``kmajor``
+above ``DECODE_M``) its prefill kernel, which takes each 16-group's sum
+on the tensor cores and folds it into one fp64 chain an output, with no
+workspace.  A launch counts as ``gemm_fp4_nv`` and also as
+``gemm_fp4_nv_decode`` or ``gemm_fp4_nv_prefill``.
 """
 from __future__ import annotations
 
@@ -246,9 +249,10 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     ``layout="tn"``: a/b packed u8 [M, K/2] / [N, K/2], scales [M, K/16]
     / [N, K/16].  ``"kmajor"``: a/b packed [K/2, M] / [K/2, N], scales
     [K/16, M] / [K/16, N].  ``alpha``: a number or a 1-element tensor.
-    ``kmajor`` at M <= ``DECODE_M`` runs the decode kernel, which takes
-    a weight and scales of unit stride along N and K % 16 == 0; anything
-    else raises there.
+    K % 16 == 0.  ``kmajor`` at M <= ``DECODE_M`` runs the decode
+    kernel, which takes a weight and scales of unit stride along N; any
+    other call runs the prefill kernel, on any strides.  Anything else
+    raises; nothing falls back to the plain version.
     """
     if layout not in _NV_PLAIN:
         raise ValueError(f"invalid layout {layout!r}")
@@ -270,14 +274,17 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     if tuple(as_r.shape) != (m, k // 16) or tuple(bs_r.shape) != (n, k // 16):
         raise ValueError(f"scale shapes {tuple(a_sf.shape)} / {tuple(b_sf.shape)} "
                          f"do not match M={m}, N={n}, K={k} ({layout})")
+    if k % 16 or min(m, n, k) == 0:
+        raise ValueError(f"K7 takes K % 16 == 0 and no empty operand; got M, N, K = "
+                         f"{m}, {n}, {k}")
     part = cnt = None
     kc = 0
     decode = not tn and m <= DECODE_M
     if decode:
-        if b_r.stride(0) != 1 or bs_r.stride(0) != 1 or k % 16:
+        if b_r.stride(0) != 1 or bs_r.stride(0) != 1:
             raise ValueError(f"K7's decode kernel takes a weight and scales of unit stride "
-                             f"along N and K % 16 == 0; got b strides {b.stride()}, b_sf "
-                             f"strides {b_sf.stride()}, K={k}")
+                             f"along N; got b strides {b.stride()}, b_sf strides "
+                             f"{b_sf.stride()}")
         kc, splits = nv_decode_split(m, n, k, torch.cuda.get_device_properties(a.device)
                                      .multi_processor_count)
         part = torch.empty((splits, m, n), dtype=torch.float64, device=a.device)
@@ -293,8 +300,7 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
         kc, _stream(a))
     _build.check(err, "gemm_fp4_nv")
     dispatch.note_launch("gemm_fp4_nv")
-    if decode:
-        dispatch.note_launch("gemm_fp4_nv_decode")
+    dispatch.note_launch("gemm_fp4_nv_decode" if decode else "gemm_fp4_nv_prefill")
     return c
 
 

@@ -253,6 +253,33 @@ def matmul_nvf4_bf16_kmajor(at, bt, a_sft, b_sft, alpha, out_dtype=torch.bfloat1
     return matmul_nvf4_bf16_tn(at.T, bt.T, a_sft.T, b_sft.T, alpha, out_dtype)
 
 
+def gemm_fp4_nv_groupfold_plain(a, b, a_sf, b_sf, alpha, *, layout: str,
+                                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The arithmetic of K7's prefill kernel, operands as for
+    ``matmul_nvf4_bf16_tn`` (``layout="tn"``) or ``_kmajor``: per 16-group
+    the integer sum s = 4p of the doubled e2m1 values' products, the exact
+    term p * sa * sb, added into one fp64 accumulator an output in
+    ascending k (one rounding a group); then one rounding to fp32, times
+    alpha in fp32.  Equal to the fp64 product (``matmul_nvf4_*``) while a
+    row pair's group terms span fewer than ~40 binades; beyond that it is
+    the kernel's order, which the plain versions do not fix.  Used by the
+    tests, not by the main path."""
+    if layout == "kmajor":
+        a, b, a_sf, b_sf = a.T, b.T, a_sf.T, b_sf.T
+    elif layout != "tn":
+        raise ValueError(f"invalid layout {layout!r}")
+    m2a = C.e2m1_decode_f32(unpack_codes(a)).to(torch.float64) * 2   # exact integers
+    m2b = C.e2m1_decode_f32(unpack_codes(b)).to(torch.float64) * 2
+    sa = C.e4m3_decode_f32(a_sf).to(torch.float64) / 4
+    sb = C.e4m3_decode_f32(b_sf).to(torch.float64)
+    acc = torch.zeros((m2a.shape[0], m2b.shape[0]), dtype=torch.float64, device=m2a.device)
+    for g in range(m2a.shape[1] // 16):
+        ks = slice(16 * g, 16 * g + 16)
+        s = m2a[:, ks] @ m2b[:, ks].T                   # integers below 2^12: exact
+        acc = acc + (s * sa[:, g, None]) * sb[None, :, g]  # the term is exact
+    return (acc.to(torch.float32) * as_alpha(alpha, acc.device)).to(check_out_dtype(out_dtype))
+
+
 # ---------------------------------------------------------------------------
 # the single-kernel quantized linear (plain versions of kernels K16, K17)
 # ---------------------------------------------------------------------------

@@ -21,9 +21,6 @@ Usage: python3 qutlass_tpu_torch/tools/time_nv_decode.py [DEPTH,COLS4[,PROBE] ..
 """
 from __future__ import annotations
 
-import ctypes
-import re
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -46,38 +43,18 @@ def build(variants, tmp: Path) -> dict:
     """Compile each (depth, cols4, probe) variant of gemm_fp4_nv.cu;
     return the loaded libraries."""
     from qutlass_tpu_torch.kernels import _build
+    from qutlass_tpu_torch.tools import _variants as V
     src = (_build.CSRC / "gemm_fp4_nv.cu").read_text()
-    procs = {}
+    sources, keys = {}, {}
     for depth, cols4, probe in variants:
-        text = re.sub(r"constexpr int DEPTH = \d+;", f"constexpr int DEPTH = {depth};", src)
-        text = re.sub(r"constexpr int COLS4 = \d+;", f"constexpr int COLS4 = {cols4};", text)
+        text = V.set_const(src, "DEPTH", depth, "DEPTH")
+        text = V.set_const(text, "COLS4", cols4, "COLS4")
         if probe:
-            old, new = LOADS if probe == "loads" else COMPUTE
-            if old not in text:
-                raise RuntimeError(f"probe {probe}: the source line to replace is gone")
-            text = text.replace(old, new)
+            text = V.replace(text, *(LOADS if probe == "loads" else COMPUTE), f"probe {probe}")
         name = f"nv_{depth}_{cols4}_{probe or 'full'}"
-        cu = tmp / f"{name}.cu"
-        cu.write_text(text)
-        so = tmp / f"{name}.so"
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC),
-               "-shared", "-o", str(so), str(cu)]
-        procs[depth, cols4, probe] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                    stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for key, (so, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {key} failed to build:\n{err}")
-        entries = err.split("Compiling entry function")
-        info = [" ".join(ln.strip() for ln in e.splitlines()[1:] if "registers" in ln or "spill" in ln)
-                for e in entries if "decodeILi4ELb1E13__nv_bfloat16" in e.splitlines()[0]]
-        print(f"variant {key}: M <= 4 bf16 kernel: {info}", flush=True)
-        lib = ctypes.CDLL(str(so))
-        lib.qt_gemm_fp4_nv.argtypes = _build._SIGNATURES["qt_gemm_fp4_nv"]
-        lib.qt_gemm_fp4_nv.restype = ctypes.c_int
-        libs[key] = lib
-    return libs
+        sources[name], keys[name] = (text, _build.CSRC), (depth, cols4, probe)
+    libs = V.build(sources, tmp, "qt_gemm_fp4_nv", "decodeILi4ELb1E13__nv_bfloat16")
+    return {keys[name]: lib for name, lib in libs.items()}
 
 
 def main(argv: list[str]) -> int:
@@ -90,9 +67,8 @@ def main(argv: list[str]) -> int:
         raise SystemExit("needs a CUDA device")
     variants = [(*(int(v) for v in a.split(",")[:2]), (a.split(",") + [""])[2])
                 for a in argv[1:]] or [(1, 4, ""), (1, 4, "loads"), (1, 4, "compute")]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
-    print(smi.stdout.strip())
+    from qutlass_tpu_torch.tools import _variants as V
+    print(V.card())
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -21,7 +21,10 @@ against their plain versions in every row whose quantized activation
 the plain quantizer gives bit for bit; K7's split-K decode kernel (M <=
 16) bitwise against its plain version (its fp64 sums of exact group
 terms are exact for the scale bytes it is given, so the split order
-moves no bit), NaN positions aside where a NaN scale byte is given.
+moves no bit), NaN positions aside where a NaN scale byte is given;
+K7's prefill kernel bitwise against its plain version on such bytes,
+and against ``gemm_fp4_nv_groupfold_plain`` (its own order of sums) on
+scale bytes whose fp64 sums round, NaN positions aside.
 """
 import pytest
 import torch
@@ -36,6 +39,7 @@ from qutlass_tpu_torch.ops import dispatch
 from qutlass_tpu_torch.ops import emulation as E
 from qutlass_tpu_torch.nn import linear as L
 from qutlass_tpu_torch.ops import int8path as I8
+from torch_helpers import nan_equal, nv_adversarial
 
 pytestmark = pytest.mark.gpu
 
@@ -414,12 +418,6 @@ def _k7_decode(at, bt, ast, bst, alpha, out_dtype=torch.bfloat16):
     return y, dispatch.launch_counts["gemm_fp4_nv_decode"] - before
 
 
-def _nan_equal(got, want) -> bool:
-    """The same NaN positions, and the same bits everywhere else."""
-    gn, wn = torch.isnan(got.float()), torch.isnan(want.float())
-    return bool(torch.equal(gn, wn)) and bool(torch.equal(got[~gn], want[~wn]))
-
-
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k,n", [(48, 33), (96, 200), (4096, 1024), (4096, 12288), (12288, 4096)])
 @pytest.mark.parametrize("m", [1, 4, 13, 16])
@@ -435,42 +433,133 @@ def test_gemm_fp4_nv_decode_kernel(dev, m, n, k, out_dtype):
     assert launched == 1 and got.dtype == out_dtype and torch.equal(got, want)
 
 
+def _k7_prefill(a, b, a_sf, b_sf, alpha, layout="kmajor", out_dtype=torch.bfloat16):
+    """K7 and the launches of its prefill and decode kernels."""
+    before = [dispatch.launch_counts[k] for k in ("gemm_fp4_nv_prefill", "gemm_fp4_nv_decode")]
+    y = G.gemm_fp4_nv(a, b, a_sf, b_sf, alpha, layout=layout, out_dtype=out_dtype)
+    return y, dispatch.launch_counts["gemm_fp4_nv_prefill"] - before[0], \
+        dispatch.launch_counts["gemm_fp4_nv_decode"] - before[1]
+
+
 @pytest.mark.parametrize("m", [17, 64])
-def test_gemm_fp4_nv_above_16_rows_and_tn_run_the_tile_kernel(dev, m):
-    """M > 16 and the row-major (tn) layout at any M run the tile kernel:
-    no decode launch, bitwise the plain version."""
+def test_gemm_fp4_nv_above_16_rows_and_tn_run_the_prefill_kernel(dev, m):
+    """M > 16 and the row-major (tn) layout at any M run the prefill
+    kernel: no decode launch, bitwise the plain version."""
     at, bt, ast, bst = _nv_operands(dev, m, 200, 4096, seed=m)
-    got, launched = _k7_decode(at, bt, ast, bst, 0.37)
+    got, pre, dec = _k7_prefill(at, bt, ast, bst, 0.37)
     want = G.gemm_fp4_nv_plain(at, bt, ast, bst, 0.37, layout="kmajor")
     a4, a4s = at[:, :4].T.contiguous(), ast[:, :4].T.contiguous()
-    before = dispatch.launch_counts["gemm_fp4_nv_decode"]
-    tn = G.gemm_fp4_nv(a4, bt.T.contiguous(), a4s, bst.T.contiguous(), 0.37, layout="tn")
+    tn, tn_pre, tn_dec = _k7_prefill(a4, bt.T.contiguous(), a4s, bst.T.contiguous(), 0.37, "tn")
     torch.cuda.synchronize()
-    assert launched == 0 and dispatch.launch_counts["gemm_fp4_nv_decode"] == before
+    assert (pre, dec, tn_pre, tn_dec) == (1, 0, 1, 0)
     assert torch.equal(got, want) and torch.equal(tn, want[:4])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["kmajor", "tn"])
+@pytest.mark.parametrize("m,k,n", [(17, 4112, 200), (64, 4096, 1024), (305, 4112, 33),
+                                   (512, 4096, 12288), (1000, 1040, 200), (1000, 1040, 2056)])
+def test_gemm_fp4_nv_prefill_kernel(dev, m, k, n, layout, out_dtype):
+    """K7's prefill kernel bitwise against its plain version, alpha on the
+    card: ragged M (vector and byte loads), N and K (K % 64 == 16), both
+    layouts, bf16 and fp32, on its 64 x 32 tile (grids under two blocks
+    an SM of 64 x 64) and its 64 x 64 tile (the last two shapes)."""
+    ops = _nv_operands(dev, m, n, k, seed=m + n + k)
+    alpha = torch.tensor([0.37], device=dev)
+    want = G.gemm_fp4_nv_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    if layout == "tn":
+        ops = tuple(t.T.contiguous() for t in ops)
+    got, pre, dec = _k7_prefill(*ops, alpha, layout, out_dtype)
+    torch.cuda.synchronize()
+    assert (pre, dec) == (1, 0) and got.dtype == out_dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["kmajor", "tn"])
+@pytest.mark.parametrize("m,n,special", [(64, 200, False), (305, 72, True), (512, 1024, True),
+                                         (512, 4096, True)])
+def test_gemm_fp4_nv_prefill_kernel_adversarial_bytes(dev, m, n, special, layout, out_dtype):
+    """Where the fp64 sums round (terms across ~47 binades) no order is
+    bitwise against the fp64 product: the prefill kernel equals the group
+    fold in ascending k (``gemm_fp4_nv_groupfold_plain``, the fp4 tile's
+    order, which K17 runs) bit for bit, NaN positions included, and the
+    fp64 product differs."""
+    ops = tuple(t.to(dev) for t in nv_adversarial(m, n, 4096, seed=m, special=special))
+    alpha = torch.tensor([0.37], device=dev)
+    want = E.gemm_fp4_nv_groupfold_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    fp64 = G.gemm_fp4_nv_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    if layout == "tn":
+        ops = tuple(t.T.contiguous() for t in ops)
+    got, pre, _ = _k7_prefill(*ops, alpha, layout, out_dtype)
+    torch.cuda.synchronize()
+    assert pre == 1 and nan_equal(got, want)
+    nan = torch.isnan(want.float())
+    assert bool(nan.any()) == special and not torch.equal(fp64[~nan], want[~nan])
+
+
+def test_gemm_fp4_nv_prefill_kernel_repeats_and_replays_in_a_cuda_graph(dev):
+    """Repeated launches give the same bits; a launch captured in a CUDA
+    graph and replayed on new inputs and a new alpha equals the plain
+    version (no workspace, no counters, alpha read on the card)."""
+    ops = list(_nv_operands(dev, 512, 1024, 4096, seed=11))
+    alpha = torch.tensor([0.37], device=dev)
+    first = G.gemm_fp4_nv(*ops, alpha, layout="kmajor")
+    for _ in range(3):
+        assert torch.equal(G.gemm_fp4_nv(*ops, alpha, layout="kmajor"), first)
+    torch.cuda.synchronize()
+    assert torch.equal(first, G.gemm_fp4_nv_plain(*ops, alpha, layout="kmajor"))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        G.gemm_fp4_nv(*ops, alpha, layout="kmajor")          # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = G.gemm_fp4_nv(*ops, alpha, layout="kmajor")
+    for seed in (12, 13):
+        for t, new in zip(ops, _nv_operands(dev, 512, 1024, 4096, seed=seed)):
+            t.copy_(new)
+        alpha.fill_(0.25 * seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, G.gemm_fp4_nv_plain(*ops, alpha, layout="kmajor"))
+
+
+def test_gemm_fp4_nv_prefill_kernel_refuses_what_it_cannot_take(dev):
+    """K % 16 != 0 (scales [M, K // 16] then miss the last group's) and
+    empty operands raise and launch nothing; there is no fallback."""
+    a, b = (torch.zeros((r, 12), dtype=torch.uint8, device=dev) for r in (32, 40))
+    sa, sb = (torch.zeros((r, 1), dtype=torch.uint8, device=dev) for r in (32, 40))
+    e, es = (torch.zeros((0, 8), dtype=torch.uint8, device=dev),
+             torch.zeros((0, 1), dtype=torch.uint8, device=dev))
+    dispatch.reset_launch_counts()
+    for args in ((a, b, sa, sb), (e, b[:, :8], es, sb), (a[:, :8], e, sa, es)):
+        with pytest.raises(ValueError):
+            G.gemm_fp4_nv(*args, 1.0, layout="tn")
+    assert dispatch.launch_counts["gemm_fp4_nv"] == 0
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_gemm_fp4_nv_decode_kernel_nan_and_zero_scales(dev, out_dtype):
     """NaN scale bytes (0x7F, 0xFF) give NaN in their row or column, zero
     scale bytes (0x00, 0x80) zero terms, as in the plain version and in
-    the tile kernel (the tn layout), at one slice and at several."""
+    the prefill kernel (the tn layout), at one slice and at several."""
     for k in (512, 8192):
         at, bt, ast, bst = _nv_operands(dev, 4, 200, k, seed=k)
         ast[3, 1], bst[5, 7], bst[k // 16 - 1, 150] = 0x7F, 0xFF, 0x7F
         ast[6, :], bst[:, 11], bst[2, 13], ast[:, 2] = 0, 0, 0x80, 0
         got, launched = _k7_decode(at, bt, ast, bst, 0.5, out_dtype)
         want = G.gemm_fp4_nv_plain(at, bt, ast, bst, 0.5, layout="kmajor", out_dtype=out_dtype)
-        tile = G.gemm_fp4_nv(at.T.contiguous(), bt.T.contiguous(), ast.T.contiguous(),
-                             bst.T.contiguous(), 0.5, layout="tn").to(out_dtype)
+        tile, pre, _ = _k7_prefill(at.T.contiguous(), bt.T.contiguous(), ast.T.contiguous(),
+                                   bst.T.contiguous(), 0.5, "tn", out_dtype)
         torch.cuda.synchronize()
-        assert launched == 1 and _nan_equal(got, want)
+        assert launched == 1 and pre == 1 and nan_equal(got, want)
         nan = torch.isnan(got.float())
         assert bool(nan[1].all()) and bool(nan[:, 7].all()) and bool(nan[:, 150].all())
         assert int(nan.sum()) == 200 + 2 * 4 - 2
         assert bool((got[~nan[:, 0]][:, 11] == 0).all()) and bool((got[2][~nan[2]] == 0).all())
-        if out_dtype == torch.bfloat16:
-            assert torch.equal(got.view(torch.int16), tile.view(torch.int16))
+        assert torch.equal(got.view(torch.int16 if out_dtype == torch.bfloat16 else torch.int32),
+                           tile.view(torch.int16 if out_dtype == torch.bfloat16 else torch.int32))
 
 
 def test_gemm_fp4_nv_decode_kernel_repeats_bitwise(dev):
@@ -1021,19 +1110,25 @@ def _fl_routes(fmt, method, x, h, wq, al, gs, rot):
 
 @pytest.mark.parametrize("m,n,k,rot", [(1, 96, 96, 32), (65, 70, 96, 16), (3, 200, 4096, 16),
                                        (65, 130, 4096, 64), (1, 1000, 12288, 128),
-                                       (3, 70, 12288, 32)])
+                                       (3, 70, 12288, 32), (4, 200, 4096, 32),
+                                       (64, 130, 4096, 16), (512, 96, 4096, 16)])
 @pytest.mark.parametrize("method", ["quest", "abs_max"])
 @pytest.mark.parametrize("fmt", ["mx", "nv"])
 def test_fused_linear_kernels(dev, fmt, method, m, n, k, rot):
-    """K16 / K17 bitwise against the composition on the card, and against
+    """K16 / K17 bitwise against the composition on the card (for NV, K7's
+    decode kernel at M <= 16 and its prefill kernel above), and against
     the plain version in every row whose quantized activation the plain
     quantizer gives bit for bit (K1 / K5 sum the rotation in another
     order than cuBLAS: at most one such row may differ here)."""
     x, h, wq, al, gs = _fl_operands(dev, fmt, method, m, n, k, rot, seed=20)
+    dispatch.reset_launch_counts()
     y, comp, plain, rows = _fl_routes(fmt, method, x, h, wq, al, gs, rot)
     torch.cuda.synchronize()
     assert tuple(y.shape) == (m, n) and y.dtype == torch.bfloat16
     assert _same_or_nan(y, comp)
+    if fmt == "nv":
+        gemm = "gemm_fp4_nv_decode" if m <= G.DECODE_M else "gemm_fp4_nv_prefill"
+        assert dispatch.launch_counts[gemm] == dispatch.launch_counts["fused_linear_nv"] == 1
     assert int((~rows).sum()) <= 1
     assert _same_or_nan(y[rows], plain[rows])
 

@@ -11,7 +11,10 @@ Tolerances, each restated in its test:
     scale bytes, 1e-1 dequant values).
   * int8 encodes and the NVFP4 GEMM given the same bytes: bitwise; at
     decode row counts also the K-major form and a model of the decode
-    kernel's split-K order of sums.
+    kernel's split-K order of sums; the group fold (the prefill kernel's
+    arithmetic) against JAX and the fp64 product, and against a model of
+    the fp4 tile's order on scale bytes whose fp64 sums round (NaN
+    positions aside).
   * NV linear against JAX's ``_linear``: cosine > 0.999; output norm
     within 0.8-1.25 of x @ w.T.
 """
@@ -36,7 +39,8 @@ from qutlass_tpu_torch.nn import QuantizedLinear, nv_linear, quantize_weight
 from qutlass_tpu_torch.ops import dispatch
 from qutlass_tpu_torch.ops import emulation as E
 from qutlass_tpu_torch.ops import int8path as I8
-from torch_helpers import cosine, hadamard_np, randn_bf16, to_np, to_torch
+from torch_helpers import (cosine, hadamard_np, nan_equal, nv_adversarial, randn_bf16, to_np,
+                           to_torch)
 
 BUDGET = 1e-4
 ROTS = [16, 32, 64, 128]
@@ -385,6 +389,73 @@ def test_decode_kernel_order_equals_the_plain_version(m, sms):
         want = E.matmul_nvf4_bf16_kmajor(aqt, bqt, ast, bst, torch.tensor([0.37]), od)
         got = _decode_kernel_order(aqt, bqt, ast, bst, 0.37, sms, od)
         assert torch.equal(got, want)
+
+
+# the group fold: the arithmetic of K7's prefill kernel (int m2 group sums,
+# the exact term, one fp64 chain an output in ascending k)
+
+@pytest.mark.parametrize("k,n", [(4112, 200), (1040, 33)])
+@pytest.mark.parametrize("m", [17, 64, 305])
+def test_groupfold_bitwise_to_jax_and_fp64(m, k, n):
+    """On rotated data at ragged M, N and K (K % 32 == 16), the group fold
+    equals JAX's ``matmul_nvf4_bf16_kmajor`` and ``_tn`` bit for bit in
+    bf16, and the port's plain versions and the fp64 dequant product times
+    alpha in bf16 and fp32."""
+    jops, tops = _nv_kmajor_operands(m, n, k, seed=80 + m, rot=16)
+    alpha = 0.37
+    aqt, bqt, ast, bst = (np.asarray(t) for t in jops)
+    tn = tuple(t.T.contiguous() for t in tops)
+    dq = lambda p, s: (G.unpack_fp4(p.T.copy()).reshape(-1, 16)
+                       * G.e4m3_to_f64(s.T.copy()).reshape(-1, 1)).reshape(p.shape[1], k)
+    ref = (dq(aqt, ast) @ dq(bqt, bst).T).astype(np.float32) * np.float32(alpha)
+    want = {"kmajor": q.matmul_nvf4_bf16_kmajor(*jops, jnp.asarray([alpha], jnp.float32)),
+            "tn": q.matmul_nvf4_bf16_tn(*(jnp.asarray(np.asarray(t).T) for t in jops),
+                                        jnp.asarray([alpha], jnp.float32))}
+    for layout, ops in (("kmajor", tops), ("tn", tn)):
+        got = E.gemm_fp4_nv_groupfold_plain(*ops, torch.tensor([alpha]), layout=layout)
+        np.testing.assert_array_equal(to_np(got).view(np.uint16),
+                                      np.asarray(want[layout]).view(np.uint16))
+        np.testing.assert_array_equal(to_np(got).view(np.uint16),
+                                      ref.astype(ml_dtypes.bfloat16).view(np.uint16))
+        got32 = E.gemm_fp4_nv_groupfold_plain(*ops, alpha, layout=layout, out_dtype=torch.float32)
+        np.testing.assert_array_equal(got32.numpy().view(np.int32), ref.view(np.int32))
+        plain = getattr(E, f"matmul_nvf4_bf16_{layout}")
+        for od, g in ((torch.bfloat16, got), (torch.float32, got32)):
+            assert torch.equal(g, plain(*ops, torch.tensor([alpha]), od))
+
+
+def _tile_order(at, bt, ast, bst, alpha, out_dtype):
+    """The fp4 tile's arithmetic (``csrc/gemm_fp4_tile.cuh``, which K17
+    runs): per 16-group the fp32 sum p of the e2m1 products (exact), the
+    fp32 term fp32(fp32(p * sa) * sb) (exact), added into fp64 in
+    ascending k; one rounding to fp32, times alpha in fp32."""
+    av = C.e2m1_decode_f32(E.unpack_codes(at.T))
+    bv = C.e2m1_decode_f32(E.unpack_codes(bt.T))
+    sa, sb = C.e4m3_decode_f32(ast.T), C.e4m3_decode_f32(bst.T)
+    acc = torch.zeros((av.shape[0], bv.shape[0]), dtype=torch.float64)
+    for g in range(av.shape[1] // 16):
+        ks = slice(16 * g, 16 * g + 16)
+        p = (av[:, ks].double() @ bv[:, ks].double().T).float()
+        acc = acc + ((p * sa[:, g, None]) * sb[None, :, g]).double()
+    return (acc.float() * torch.tensor(alpha, dtype=torch.float32)).to(out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n,special", [(17, 40, False), (64, 24, True), (33, 72, True)])
+def test_groupfold_equals_the_tile_order_on_adversarial_bytes(m, n, special, out_dtype):
+    """Where the fp64 sums round, no order is bitwise against the fp64
+    product (which differs here): the group fold (int sums, the term from
+    MAGIC + s) equals the fp4 tile's order (fp32 sums and terms) bit for
+    bit, NaN positions included, in both layouts."""
+    ops = nv_adversarial(m, n, 4096, seed=90 + m, special=special)
+    want = _tile_order(*ops, 0.37, out_dtype)
+    for layout, o in (("kmajor", ops), ("tn", tuple(t.T.contiguous() for t in ops))):
+        got = E.gemm_fp4_nv_groupfold_plain(*o, 0.37, layout=layout, out_dtype=out_dtype)
+        assert nan_equal(got, want)
+    fp64 = E.matmul_nvf4_bf16_kmajor(*ops, 0.37, out_dtype)
+    nan = torch.isnan(want.float())
+    assert bool(nan.any()) == special
+    assert not torch.equal(fp64[~nan], want[~nan])
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Shared utilities of the PyTorch-port tests: data moves between the two
-packages as numpy arrays, bf16 through its bit pattern."""
+packages as numpy arrays, bf16 through its bit pattern.  ``ml_dtypes`` is
+imported only where a bf16 array is made: the card's tests import this
+module for ``nan_equal`` and ``nv_adversarial`` alone."""
 import numpy as np
-import ml_dtypes
 import torch
 
 from qutlass_tpu_torch.models.convert import tensor_from_numpy
@@ -15,6 +16,7 @@ def to_torch(a, device="cpu") -> torch.Tensor:
 
 def to_np(t: torch.Tensor) -> np.ndarray:
     """tensor -> numpy, bit-exact (bf16 comes back as ml_dtypes.bfloat16)."""
+    import ml_dtypes
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
@@ -23,6 +25,7 @@ def to_np(t: torch.Tensor) -> np.ndarray:
 
 def hadamard_np(n: int) -> np.ndarray:
     """Normalized Sylvester-Hadamard matrix in bf16 (numpy)."""
+    import ml_dtypes
     h = np.array([[1.0]])
     while h.shape[0] < n:
         h = np.block([[h, h], [h, -h]])
@@ -30,6 +33,7 @@ def hadamard_np(n: int) -> np.ndarray:
 
 
 def randn_bf16(rng: np.random.Generator, *shape, scale=25.0) -> np.ndarray:
+    import ml_dtypes
     return (rng.standard_normal(shape) * scale).astype(ml_dtypes.bfloat16)
 
 
@@ -37,3 +41,34 @@ def cosine(a, b) -> float:
     a = np.asarray(a, np.float64).ravel()
     b = np.asarray(b, np.float64).ravel()
     return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-30))
+
+
+def nan_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """The same NaN positions, and the same bits everywhere else."""
+    gn, wn = torch.isnan(got.float()), torch.isnan(want.float())
+    return bool(torch.equal(gn, wn)) and bool(torch.equal(got[~gn], want[~wn]))
+
+
+def nv_adversarial(m: int, n: int, k: int, seed: int, special: bool):
+    """K-major NVFP4 operands (codes [K/2, M], [K/2, N], scale bytes
+    [K/16, M], [K/16, N], CPU tensors) whose fp64 sums round: the first
+    groups add the largest term (6 * 6 * 16 * 448 * 448, every output
+    alike) until the sum passes 2^33, the last as many subtract it again,
+    and the 16 groups between add terms of random codes and scale bytes of
+    either sign with exponent fields 0..2 (multiples of 2^-20, terms ~47
+    binades below the largest), under the ulp of the running sum.
+    ``special`` plants NaN (0x7F, 0xFF) and zero (0x00, 0x80) scale bytes."""
+    rng = np.random.default_rng(seed)
+    groups = k // 16
+    nb = (groups - 16) // 2
+    at = rng.integers(0, 256, (k // 2, m), dtype=np.uint8)
+    bt = rng.integers(0, 256, (k // 2, n), dtype=np.uint8)
+    at[:8 * nb], bt[:8 * nb], bt[8 * (groups - nb):], at[8 * (groups - nb):] = 0x77, 0x77, 0x77, 0xFF
+    ast, bst = ((rng.integers(0, 256, (groups, r), dtype=np.uint8) & 0x87)
+                | (rng.integers(0, 3, (groups, r), dtype=np.uint8) << 3) for r in (m, n))
+    for s in (ast, bst):
+        s[:nb], s[groups - nb:] = 0x7E, 0x7E
+    if special:
+        ast[nb + 1, 1], bst[nb + 2, 3], bst[groups - 1, n - 1], ast[0, m - 1] = 0x7F, 0xFF, 0x7F, 0xFF
+        ast[nb + 3, :], bst[:, 2], bst[nb + 4, 5], ast[:, 4] = 0, 0, 0x80, 0
+    return tuple(torch.from_numpy(t) for t in (at, bt, ast, bst))

@@ -13,11 +13,12 @@ Phases, in order; any failure exits non-zero before the result lines:
      against its targets (bf16 ``torch.matmul`` at M <= 16,
      ``torch._int_mm`` above) and summed over a decode step, a prefill
      and a QAT step; K2 and K6 summed over an int8 decode step and a
-     prefill, beside the time of one launch on this card; K7 (bitwise,
-     bf16 and fp32, at M = 4 through its split-K decode kernel and at M =
-     64 and 512 through its prefill kernel) summed over an NV fp4 decode
-     step and a prefill, beside the step's weight byte bound, launch
-     floor and (prefill) fp64 fold floor; the QAT kernels
+     prefill, beside the time of one launch on this card; K4 and K7
+     (bitwise, bf16 and fp32, at M = 4 through their split-K decode
+     kernel, at M = 512 through K4's tile and K7's prefill kernel, and K7
+     at M = 64) summed over an fp4 decode step and a prefill, beside the
+     step's weight byte bound, launch floor and (K7's prefill) fp64 fold
+     floor; the QAT kernels
      (K8-K11, K3 in the int8 backward's orders, and the training
      forward's K1 with the clip mask and K3) at the training shapes of
      phase 6, the backward-operand kernels K12-K15 at phase 7's, and the
@@ -29,7 +30,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      random weights, quantized on the card), 32 greedy tokens with the
      weights stored as int8 (the default), checked against a
      step-by-step replay, then the same requests with the weights
-     stored as packed fp4
+     stored as packed fp4 (K4's decode kernel at every decode step, its
+     tile kernel at the prefill), timed and checked against a replay
   5. NVFP4 serving, the same requests: int8-stored weights with the
      exact per-call activation scale, then with calibrated static
      scales, then fp4-stored weights (K7's decode kernel at every decode
@@ -93,13 +95,17 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
                         "qutlass_tpu/ops/int8path.py:148"),
     "gemm_fp4_mx": ("qutlass_tpu_torch/csrc/gemm_fp4_mx.cu",
                     "qutlass_tpu/kernels/gemm.py:193"),
+    "gemm_fp4_mx_decode": ("qutlass_tpu_torch/csrc/gemm_fp4_decode.cuh",
+                           "qutlass_tpu/kernels/gemm.py:193"),
+    "gemm_fp4_mx_tile": ("qutlass_tpu_torch/csrc/gemm_fp4_mx.cu",
+                         "qutlass_tpu/kernels/gemm.py:193"),
     "quantize_nv": ("qutlass_tpu_torch/csrc/quantize_nv.cu",
                     "qutlass_tpu/kernels/quantize.py:248"),
     "quantize_nv_int8": ("qutlass_tpu_torch/csrc/quantize_nv_int8.cu",
                          "qutlass_tpu/kernels/quantize.py:719"),
     "gemm_fp4_nv": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
                     "qutlass_tpu/kernels/gemm.py:193"),
-    "gemm_fp4_nv_decode": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
+    "gemm_fp4_nv_decode": ("qutlass_tpu_torch/csrc/gemm_fp4_decode.cuh",
                            "qutlass_tpu/kernels/gemm.py:193"),
     "gemm_fp4_nv_prefill": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
                             "qutlass_tpu/kernels/gemm.py:193"),
@@ -349,36 +355,44 @@ def fold_floor_ms(m: int, n: int, k: int) -> float:
     return 4 * m * n * (k // 16) / PEAK_OPS_PER_S["fp64"] * 1e3
 
 
-def k7_sums(torch, ktimes: dict, layers: int) -> None:
-    """K7's sum over an NV fp4 decode step (batch 4) and a 512-row prefill
-    from the phase 2 times in ``ktimes`` ({(name, M, K, N): ms}), beside the
-    byte bound of the step's weights (0.5625 byte an element), the launch
-    floor of its 7 x ``layers`` calls and, at the prefill, the floor of the
-    prefill kernel's fp64 fold."""
+def fp4_sums(torch, ktimes: dict, layers: int) -> None:
+    """K4's and K7's sums over an fp4 decode step (batch 4) and a 512-row
+    prefill from the phase 2 times in ``ktimes`` ({(name, M, K, N): ms}),
+    beside the byte bound of the step's weights (1/2 + 1/group byte an
+    element: 0.53125 MX, 0.5625 NV), the launch floor of its 7 x
+    ``layers`` calls and, at K7's prefill, the floor of its prefill
+    kernel's fp64 fold."""
     floor = timed_ms(torch, lambda: torch.cuda._sleep(0), 50)
     calls = layers * sum(LAYER_KN.values())
-    weight_bytes = layers * sum(c * k * n * 9 / 16 for (k, n), c in LAYER_KN.items())
-    for m in SHAPES_M:
-        what = f"NV fp4 decode step (batch {m})" if m <= 16 else f"{m}-row NV fp4 prefill"
-        tot = layers * sum(c * ktimes["gemm_fp4_nv", m, k, n] for (k, n), c in LAYER_KN.items())
-        per = ", ".join(f"(K, N)=({k}, {n}) {ktimes['gemm_fp4_nv', m, k, n]:.4f} ms"
-                        for k, n in LAYER_KN)
-        fold = "" if m <= 16 else ", fp64 fold floor " + \
-            f"{layers * sum(c * fold_floor_ms(m, n, k) for (k, n), c in LAYER_KN.items()):.3f} ms"
-        print(f"phase 2 K7 in an {what}, 7 linears x {layers} layers ({calls} calls): "
-              f"{tot:.3f} ms; weight byte bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, "
-              f"launch floor {calls} x {floor:.4f} = {calls * floor:.3f} ms{fold}; per call {per}")
+    for name, kern, fmt, group in (("gemm_fp4_mx", "K4", "MX", 32),
+                                   ("gemm_fp4_nv", "K7", "NV", 16)):
+        weight_bytes = layers * sum(c * k * n * (0.5 + 1 / group) for (k, n), c in LAYER_KN.items())
+        for m in SHAPES_M:
+            what = f"an {fmt} fp4 decode step (batch {m})" if m <= 16 else \
+                f"a {m}-row {fmt} fp4 prefill"
+            tot = layers * sum(c * ktimes[name, m, k, n] for (k, n), c in LAYER_KN.items())
+            per = ", ".join(f"(K, N)=({k}, {n}) {ktimes[name, m, k, n]:.4f} ms"
+                            for k, n in LAYER_KN)
+            fold = "" if m <= 16 or name != "gemm_fp4_nv" else ", fp64 fold floor " + \
+                f"{layers * sum(c * fold_floor_ms(m, n, k) for (k, n), c in LAYER_KN.items()):.3f} ms"
+            print(f"phase 2 {kern} in {what}, 7 linears x {layers} layers ({calls} calls): "
+                  f"{tot:.3f} ms; weight byte bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
+                  f"ms, launch floor {calls} x {floor:.4f} = {calls * floor:.3f} ms{fold}; per "
+                  f"call {per}")
 
 
-def compare_kernels(torch, results: dict, qtimes: dict) -> None:
-    """K1-K4, the MXFP4 path's kernels; K2's times go to ``qtimes``."""
+def compare_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None:
+    """K1-K4, the MXFP4 path's kernels; K2's times go to ``qtimes``, K4's
+    to ``ktimes``."""
     import qutlass_tpu_torch as qt
     from qutlass_tpu_torch.kernels import gemm as G
     from qutlass_tpu_torch.kernels import quantize as Q
+    from qutlass_tpu_torch.ops import dispatch
     from qutlass_tpu_torch.ops import emulation as E
     from qutlass_tpu_torch.ops import int8path as I8
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
     h = qt.hadamard_matrix(ROT, device=dev)
     record = _recorder(results)
@@ -441,11 +455,21 @@ def compare_kernels(torch, results: dict, qtimes: dict) -> None:
             _check_k3(torch, G, ai.T, wi, sa, sb, 1.0,
                       lambda od: I8.matmul_mxf4_bf16_int8_kmajor(ai, wi, sa, sb, 1.0, od),
                       f"kmajor at {shape}")
-            # K4: the fp4-weight GEMM, bitwise vs plain and vs K3 at deficit <= 3
+            # K4: the fp4-weight GEMM, its decode kernel at M <= 16 and its
+            # tile kernel above: bitwise vs plain in bf16 and fp32, and vs K3
+            # at deficit <= 3
             xqt, xst = Q.quantize_mx(x, h, rot_size=32, layout="kmajor")
+            kernel = "gemm_fp4_mx_decode" if m <= G.DECODE_M else "gemm_fp4_mx_tile"
+            before = dispatch.launch_counts[kernel]
             y4 = G.gemm_fp4_mx(xqt, wqt, xst, wst, 1.0, layout="kmajor")
+            y32 = G.gemm_fp4_mx(xqt, wqt, xst, wst, 1.0, layout="kmajor",
+                                out_dtype=torch.float32)
             want4 = G.gemm_fp4_mx_plain(xqt, wqt, xst, wst, 1.0, layout="kmajor")
-            require(torch.equal(y4, want4), f"K4 differs from its plain version at {shape}")
+            w32 = G.gemm_fp4_mx_plain(xqt, wqt, xst, wst, 1.0, layout="kmajor",
+                                      out_dtype=torch.float32)
+            require(dispatch.launch_counts[kernel] == before + 2, f"K4 did not run {kernel}")
+            require(torch.equal(y4, want4) and torch.equal(y32, w32),
+                    f"K4's {kernel} differs from its plain version at {shape}")
             ai2, sa2, da = I8.encode_int8(xqt, xst, kmajor=True)
             same = "n/a (deficit > 3)"
             if max(int(da), int(dw)) <= 3:
@@ -456,17 +480,24 @@ def compare_kernels(torch, results: dict, qtimes: dict) -> None:
                                                        layout="kmajor"))
             plain = timed_ms(torch, lambda: G.gemm_fp4_mx_plain(xqt, wqt, xst, wst, 1.0,
                                                                 layout="kmajor"))
-            record("gemm_fp4_mx", shape, 0.0, ms, plain, f" vs_K3={same}",
-                   gemm_bound(m, n, k, m * k // 2 + m * k // 32, n * k // 2 + n * k // 32,
-                              "int8"))
+            bnd = gemm_bound(m, n, k, m * k // 2 + m * k // 32, n * k // 2 + n * k // 32, "int8")
+            extra = f" {kernel}, bf16 and fp32 bitwise, vs_K3={same}"
+            if m <= G.DECODE_M:
+                extra += f", splits {G.fp4_decode_split(m, n, k, sms, 32)}"
+            record("gemm_fp4_mx", shape, 0.0, ms, plain, extra, bnd)
+            ktimes["gemm_fp4_mx", m, k, n] = ms
+            if (m, k, n) in (TIMED, (SHAPES_M[0], *TIMED[1:])):   # the kernel's row of the JSON line
+                results[kernel].update(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1])
     # the reference-parity drive: row-major quantize + matmul_mxf4_bf16_tn
     m, k, n = 512, 4096, 4096
     xq, xs = check_quantize(randn(m, k), "rowmajor", (m, k, None), False)
     wq, ws = Q.quantize_mx(randn(n, k, scale=k ** -0.5), h, rot_size=32)
+    before = dispatch.launch_counts["gemm_fp4_mx_tile"]
     y = qt.matmul_mxf4_bf16_tn(xq, wq, qt.to_blocked(xs), qt.to_blocked(ws), 1.0)
     want = G.gemm_fp4_mx_plain(xq, wq, xs[:m, :k // 32], ws[:n, :k // 32], 1.0, layout="tn")
-    require(torch.equal(y, want), "K4 tn layout differs from its plain version")
-    record("gemm_fp4_mx", (m, k, n), 0.0, extra=" layout=tn")
+    require(torch.equal(y, want) and dispatch.launch_counts["gemm_fp4_mx_tile"] == before + 1,
+            "K4 tn layout differs from its plain version or did not run the tile kernel")
+    record("gemm_fp4_mx", (m, k, n), 0.0, extra=" layout=tn gemm_fp4_mx_tile bitwise")
 
 
 def _ulp_diff(torch, a, b):
@@ -584,7 +615,7 @@ def compare_nv_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None
                     f"K7's {kernel} differs from its plain version at {shape}")
             extra = f" {kernel}, bf16 and fp32 bitwise"
             if m <= G.DECODE_M:
-                extra += f", splits {G.nv_decode_split(m, n, k, sms)}"
+                extra += f", splits {G.fp4_decode_split(m, n, k, sms, 16)}"
             err = (y7.float() - want7.float()).abs().max().item()
             ms = timed_ms(torch, lambda: G.gemm_fp4_nv(xqt, wqt, xst, wst, alpha,
                                                        layout="kmajor"))
@@ -973,7 +1004,8 @@ def _compose_nv(G, Q, x, h, gsx, wqt, wst, alpha, kw):
 # phase 4: serve at Qwen3-8B width
 # ---------------------------------------------------------------------------
 
-MX_PATH = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1", "gemm_fp4_mx")
+MX_PATH = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1", "gemm_fp4_mx",
+           "gemm_fp4_mx_decode", "gemm_fp4_mx_tile")
 NV_PATH = ("quantize_nv", "quantize_nv_int8", "gemm_int8_rank1", "gemm_fp4_nv",
            "gemm_fp4_nv_decode", "gemm_fp4_nv_prefill")
 
@@ -1098,9 +1130,10 @@ def serve(torch, layers: int, steps: int, prof: bool = False) -> dict:
     run = dict(quantized=True, lengths=lengths)
     logits, toks, prefill_ms, ms_per_token, generate_ms = run_and_replay(
         torch, M, cfg, w_int8, prompt, h, lengths, max_len, steps, "phase 4 MX int8")
-    # the same requests with fp4-stored weights (kernels K1 + K4)
-    logits4, _ = M.prefill(cfg, w_fp4, prompt, h, max_len=max_len, **run)
-    toks4 = M.generate(cfg, w_fp4, prompt, h, steps=steps, max_len=max_len, **run)
+    # the same requests with fp4-stored weights (kernels K1 + K4: its decode
+    # kernel at every decode step, its tile kernel at the prefill)
+    logits4, toks4, prefill4, ms_per_token4, generate4 = run_and_replay(
+        torch, M, cfg, w_fp4, prompt, h, lengths, max_len, steps, "phase 4 MX fp4")
     torch.cuda.synchronize()
     counts = dict(dispatch.launch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1117,6 +1150,9 @@ def serve(torch, layers: int, steps: int, prof: bool = False) -> dict:
           f"(4 ragged requests, lengths {LENS}), decode {ms_per_token:.2f} ms/step "
           f"(batch 4, {steps} steps), generate {generate_ms:.1f} ms; host clock "
           f"after a warm-up")
+    print(f"phase 4 fp4 weights: prefill {prefill4:.1f} ms, decode {ms_per_token4:.2f} "
+          f"ms/step (batch 4, {steps} steps), generate {generate4:.1f} ms; host clock after a "
+          f"warm-up; tokens equal the replay")
     print(f"phase 4 fp4 weights: prefill logits cosine to int8 weights {cos:.6f}, "
           f"token agreement {agree:.3f}")
     print(f"phase 4 peak device memory {peak_gib:.2f} GiB; launch counts {counts}")
@@ -1126,7 +1162,8 @@ def serve(torch, layers: int, steps: int, prof: bool = False) -> dict:
     if prof:
         profile_path(torch, M, cfg, w_int8, prompt, h, lengths, max_len, "MX int8",
                      ms_per_token)
-        profile_path(torch, M, cfg, w_fp4, prompt, h, lengths, max_len, "MX fp4")
+        profile_path(torch, M, cfg, w_fp4, prompt, h, lengths, max_len, "MX fp4",
+                     ms_per_token4)
     return counts
 
 
@@ -1513,7 +1550,9 @@ def fused_linear_phase(torch, trained) -> dict:
             y, ms_c, ms_f = both_routes(
                 f"QuartetMLP M={m}", lambda: mlp(x),
                 {"fused_linear_mx": 2, "quantize_mx": 2, "gemm_fp4_mx": 0},
-                {"fused_linear_mx": 0, "quantize_mx": 4, "gemm_fp4_mx": 2},
+                {"fused_linear_mx": 0, "quantize_mx": 4, "gemm_fp4_mx": 2,
+                 "gemm_fp4_mx_decode": 2 if m <= 16 else 0,
+                 "gemm_fp4_mx_tile": 0 if m <= 16 else 2},
                 iters=3 if m > 64 else 10)
             ref = F.silu((x @ w1.T).float()).to(torch.bfloat16) @ w2.T
             cos = cosine(y, ref)
@@ -1532,7 +1571,7 @@ def fused_linear_phase(torch, trained) -> dict:
         y, ms_c, ms_f = both_routes(
             "abs-max QuartetLinear M=64", lambda: lin(x),
             {"fused_linear_mx": 1, "quantize_mx": 1, "gemm_fp4_mx": 0},
-            {"fused_linear_mx": 0, "quantize_mx": 2, "gemm_fp4_mx": 1})
+            {"fused_linear_mx": 0, "quantize_mx": 2, "gemm_fp4_mx": 1, "gemm_fp4_mx_tile": 1})
         cos = cosine(y, x @ w1.T)
         require(cos >= 0.95, f"phase 8 abs-max QuartetLinear: cosine {cos} to the bf16 linear")
         print(f"phase 8 MX abs-max QuartetLinear eval {QAT_D}->{QAT_H} M=64 (alpha 1/9): "
@@ -1606,7 +1645,7 @@ def main() -> int:
                       "bound_ms": None, "bound_by": None, "library_ms": None}
                for name, (src, rep) in KERNELS.items()}
     qtimes, ktimes = {}, {}
-    compare_kernels(torch, results, qtimes)
+    compare_kernels(torch, results, qtimes, ktimes)
     compare_nv_kernels(torch, results, qtimes, ktimes)
     compare_qat_kernels(torch, results)
     compare_bwd_op_kernels(torch, results)
@@ -1614,7 +1653,7 @@ def main() -> int:
     from qutlass_tpu_torch.models import QWEN3_8B
     compare_k3(torch, results, QWEN3_8B.num_layers)
     quantizer_sums(torch, qtimes, QWEN3_8B.num_layers)
-    k7_sums(torch, ktimes, QWEN3_8B.num_layers)
+    fp4_sums(torch, ktimes, QWEN3_8B.num_layers)
 
     # phase 3
     t0 = time.perf_counter()

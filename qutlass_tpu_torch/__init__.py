@@ -234,8 +234,9 @@ def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha):
 
 def _mx_linear_alpha(alpha, method: str):
     """alpha (None for 1) of the MX linear, times float32(1/9) in fp32 for
-    abs-max (the 3x of both operands).  A number stays a host number and
-    a tensor stays where it lies, so no route copies it to the card."""
+    abs-max (the 3x of both operands).  A number stays a host number (K4
+    takes it by value, K16 fills a device scalar) and a tensor stays where
+    it lies, so no route copies it to the card or syncs."""
     alpha = 1.0 if alpha is None else alpha
     if method == "quest":
         return alpha

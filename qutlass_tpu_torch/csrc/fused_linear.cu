@@ -12,21 +12,23 @@
 //
 // What bounds it on the H100: at decode the weight bytes (0.53 or 0.56
 // byte a weight element); at prefill the CUDA cores' fp32 rate, since
-// this first version accumulates on them as K4 and K7 do.
+// this first version accumulates on them as K4's tile kernel does.
 //
 // Exactness by construction: each output is bitwise the composition K1 +
 // K4 (K5 + K7).  The activation of every 128-column slab is quantized with
 // the device functions of K1 (rotate_elem, group_scale_byte, group_q,
 // e2m1_code) or K5 (nv_group_byte, nv_mul), one warp per 32 columns of a
-// row as there, and decoded as K4 (e2m1_decode_scaled) or K7 (e2m1_value
-// and e4m3_decode) decode the quantizer's bytes.  The weight's decode, the
-// sums and the epilogue are K4's and K7's own code (gemm_fp4_tile.cuh):
-// one fmaf per k, k ascending, then * alpha (MX); an exact fp32 sum per
-// 16-group, times both scales, added into fp64, rounded once, then *
-// alpha (NV).  alpha and the NV activation global scale are read from
+// row as there, and decoded as K4 (e2m1_value and e8m0_decode) or K7
+// (e2m1_value and e4m3_decode) decode the quantizer's bytes.  The
+// weight's decode, the sums and the epilogue are the fp4 tile's
+// (gemm_fp4_tile.cuh), K4's own code: per group the exact fp32 sum of
+// its e2m1 products, times both scales (in fp64 for MX's powers of two,
+// in fp32 for NV's e4m3 values: exact either way), added into fp64 in
+// ascending k, rounded once, then * alpha.  K7's kernels add the same
+// exact NV terms.  alpha and the NV activation global scale are read from
 // device memory.
 //
-// Design: 64x64 output tiles, 256 threads of 4x4 outputs each (K4/K7's
+// Design: 64x64 output tiles, 256 threads of 4x4 outputs each (K4's
 // tile).  K is walked in slabs of 128 columns, a multiple of every
 // rotation size and of both group sizes; a last partial slab (K = 96, or
 // 48 for NV) is zero-padded and its sums stop at the valid columns.
@@ -36,9 +38,7 @@
 // 64) this kernel is for; at M = 64 it doubles the NV call (PERF.md).
 // Shared memory is dynamic (up to 115.7 KB at rotation 128): the decoded A
 // and B slabs as fp32 [128][65], the x slab bf16 [64][128], the rotation
-// [rot][rot], and for NV the slabs' decoded scales.
-#include <type_traits>
-
+// [rot][rot], and the slabs' decoded scales.
 #include "gemm_fp4_tile.cuh"
 
 namespace {
@@ -53,9 +53,8 @@ constexpr size_t kSlabBytes = sizeof(float) * BK * PAD;
 constexpr size_t kScaleBytes = sizeof(float) * NG * BM;
 constexpr size_t kXBytes = sizeof(__nv_bfloat16) * BM * BK;
 
-size_t smem_bytes(int fmt, int rot) {
-  return 2 * kSlabBytes + (fmt == FMT_NV ? 2 * kScaleBytes : 0) + kXBytes +
-         sizeof(__nv_bfloat16) * rot * rot;
+size_t smem_bytes(int rot) {
+  return 2 * kSlabBytes + 2 * kScaleBytes + kXBytes + sizeof(__nv_bfloat16) * rot * rot;
 }
 
 template <int FMT>
@@ -68,14 +67,9 @@ fused_linear_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   extern __shared__ __align__(16) unsigned char smem[];
   float (*As)[PAD] = reinterpret_cast<float (*)[PAD]>(smem);
   float (*Bs)[PAD] = reinterpret_cast<float (*)[PAD]>(smem + kSlabBytes);
-  unsigned char* rest = smem + 2 * kSlabBytes;
-  float (*Sa)[BM] = nullptr;
-  float (*Sb)[BN] = nullptr;
-  if constexpr (FMT == FMT_NV) {
-    Sa = reinterpret_cast<float (*)[BM]>(rest);
-    Sb = reinterpret_cast<float (*)[BN]>(rest + kScaleBytes);
-    rest += 2 * kScaleBytes;
-  }
+  float (*Sa)[BM] = reinterpret_cast<float (*)[BM]>(smem + 2 * kSlabBytes);  // [NG][BM]
+  float (*Sb)[BN] = reinterpret_cast<float (*)[BN]>(smem + 2 * kSlabBytes + kScaleBytes);
+  unsigned char* rest = smem + 2 * kSlabBytes + 2 * kScaleBytes;
   __nv_bfloat16 (*xs)[BK] = reinterpret_cast<__nv_bfloat16 (*)[BK]>(rest);
   __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(rest + kXBytes);
 
@@ -88,8 +82,7 @@ fused_linear_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
 
   for (int i = tid; i < rot * rot; i += THREADS) hs[i] = h[i];
 
-  using Acc = typename std::conditional<FMT == FMT_MX, float, double>::type;
-  Acc acc[4][4];
+  double acc[4][4];
   zero(acc);
 
   for (int k0 = 0; k0 < K; k0 += BK) {
@@ -99,7 +92,7 @@ fused_linear_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
       xs[rr][cc] = cc < kw ? x[(long long)(m0 + rr) * K + k0 + cc] : __float2bfloat16(0.f);
     }
     if constexpr (FMT == FMT_MX)
-      decode_mx<BK>(Bs, b, b_n, b_k, 1, bs, bs_n, bs_g, n0, N, k0, K, tid);
+      decode_mx<BK>(Bs, Sb, b, b_n, b_k, 1, bs, bs_n, bs_g, n0, N, k0, K, tid);
     else
       decode_nv<BK>(Bs, Sb, b, b_n, b_k, bs, bs_n, bs_g, n0, N, k0, K, tid);
     __syncthreads();
@@ -113,7 +106,8 @@ fused_linear_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
       const float v = qt::rotate_elem(xs[rr], hs, rot, col);
       if constexpr (FMT == FMT_MX) {
         const int byte = qt::group_scale_byte(v, method);
-        As[col][rr] = qt::e2m1_decode_scaled(qt::e2m1_code(qt::group_q(v, byte, method)), byte);
+        As[col][rr] = qt::e2m1_value(qt::e2m1_code(qt::group_q(v, byte, method)));
+        if (lane == 0) Sa[col >> 5][rr] = qt::e8m0_decode(byte);
       } else {
         const int byte = qt::nv_group_byte(v, method, gs);
         As[col][rr] = qt::e2m1_value(qt::e2m1_code(__fmul_rn(v, qt::nv_mul(byte, method, gs))));
@@ -123,7 +117,7 @@ fused_linear_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
     __syncthreads();
 
     if constexpr (FMT == FMT_MX)
-      mx_accumulate(acc, As, Bs, kw, tx, ty);
+      for (int g = 0; g < kw / 32; ++g) mx_accumulate_group(acc, As, Bs, Sa, Sb, g, tx, ty);
     else
       for (int g = 0; g < kw / 16; ++g) nv_accumulate_group(acc, As, Bs, Sa, Sb, g, tx, ty);
     __syncthreads();
@@ -140,7 +134,7 @@ cudaError_t allow_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
   err = cudaFuncSetAttribute(fused_linear_kernel<FMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes(FMT, 128));
+                             (int)smem_bytes(128));
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
@@ -152,7 +146,7 @@ int launch(const void* x, const void* h, const void* gs, const void* b, long lon
   const cudaError_t err = allow_smem<FMT>();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_linear_kernel<FMT><<<grid, THREADS, smem_bytes(FMT, rot), (cudaStream_t)stream>>>(
+  fused_linear_kernel<FMT><<<grid, THREADS, smem_bytes(rot), (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)h, (const float*)gs, (const uint8_t*)b, b_n,
       b_k, (const uint8_t*)bs, bs_n, bs_g, (const float*)alpha, (__nv_bfloat16*)c, M, N, K, rot,
       method);

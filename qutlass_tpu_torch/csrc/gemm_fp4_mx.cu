@@ -1,26 +1,50 @@
-// K4 gemm_fp4_mx: the MXFP4 decode GEMM,
-//   C[m, n] = out( (sum_k dq(a)[m, k] * dq(b)[n, k]) * alpha ),
-// dq = e2m1 code times its 32-group e8m0 scale, exact in bf16; out = bf16
-// or fp32 (the tensor-parallel partial sums' type).
+// K4 gemm_fp4_mx: the MXFP4 GEMM,
+//   C[m, n] = out( float(sum_g p_g sa_g sb_g) * alpha ),
+// p_g the exact sum of a 32-group's e2m1 products, sa_g and sb_g its two
+// e8m0 scales 2^(byte - 127); out = bf16 or fp32 (the tensor-parallel
+// partial sums' type).
 //
 // Replaces the Pallas kernel qutlass_tpu/kernels/gemm.py:_run_gemm with
 // _gemm_fp4_kernel, fmt="mx" (:127-148), behind matmul_mxf4_bf16_tn,
 // _kmajor and _kmajor_codes (:213-251): the fp4-weight fallback of the
 // quantized linear and the reference-parity GEMM.
 //
-// What bounds it on the H100: fp32 FMA rate.  This first version
-// accumulates on the CUDA cores, not the tensor cores (67 TFLOP/s fp32
-// against 989 bf16), because an fp32 FMA of two exact products rounds
-// exactly like the fp64 reference whenever the partial sums are exact,
-// which makes the result bit-exact against bf16(fp64 dequant matmul).
+// Exactness.  A group's p (multiples of 1/4 up to 1152) is exact in fp32
+// and in int32 (as s = 4 p), and the term p sa sb is exact in fp64 for
+// every scale byte (fp32 would overflow near byte 254 and flush near byte
+// 0); the terms are added into one fp64 sum an output, rounded once to
+// fp32, times alpha.  While a row pair's group terms span fewer than ~40
+// binades the fp64 sums are exact, the order of the additions moves no
+// bit, and the result is bitwise the plain version's (the fp64 sum of the
+// exact products, rounded once) and so the JAX package's.  Beyond that
+// regime the tile kernel adds in ascending k, as K16 does.  Where an
+// operand's scale byte is 253 or 254 the plain version's bf16 dequant
+// saturates to inf while the fold keeps the exact term; there, and where
+// the fp64 sums round, the kernels are held to
+// ops/emulation.gemm_fp4_mx_groupfold_plain.  Scale byte 255 gives NaN.
 //
-// Design: 64x64 output tiles, 256 threads of 4x4 outputs each (the tile
-// of gemm_fp4_tile.cuh, shared with K16).  Every K step of 32 (one scale
-// group) decodes a 32x64 slab of each operand with the integer formula of
-// codecs.e2m1_decode_scaled_bf16 (exact for every scale byte, 0 included;
-// the TPU's SWAR trick is not, and is not used) into shared memory as
-// fp32.  Operands and scales are read through strides, so the row-major,
-// K-major and unpacked-codes layouts share the kernel.
+// The launcher picks one of two kernels:
+//
+// Decode (dec::gemm_fp4_decode<dec::Mx>, gemm_fp4_decode.cuh, shared with
+// K7): the K-major layout at M <= 16, the serving path's call (weight
+// packed [K/2, N], scales [K/32, N], unit stride along N).  Bound by the
+// weight bytes, 0.53125 byte an element (8.0 us at K x N = 4096 x 12288).
+// Split-K over blocks that stream the weight into registers, each
+// 32-group's s from eight __dp4a, the fp64 partials added in split order
+// by the last block of a column tile, in one launch with no host sync.
+//
+// Tile (gemm_fp4_mx_kernel): every other call (tn and kmajor_codes at any
+// M, kmajor above 16 rows).  64x64 output tiles, 256 threads of 4x4
+// outputs each (the tile of gemm_fp4_tile.cuh, shared with K16).  Every
+// K step of 32 (one scale group) decodes a 32x64 slab of each operand's
+// e2m1 values and its scale row into shared memory as fp32; each output
+// takes the group's p by 32 fmaf and folds p sa sb into fp64.  Operands
+// and scales are read through strides, so the row-major, K-major and
+// unpacked-codes layouts share the kernel.  It sums on the CUDA cores.
+//
+// Both kernels read alpha from device memory, or take a number by value
+// (alpha null): no host sync and no launch for it.
+#include "gemm_fp4_decode.cuh"
 #include "gemm_fp4_tile.cuh"
 
 namespace {
@@ -33,42 +57,65 @@ __global__ void __launch_bounds__(THREADS)
 gemm_fp4_mx_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k, int a_packed,
                    const uint8_t* __restrict__ as, long long as_m, long long as_g,
                    const uint8_t* __restrict__ b, long long b_n, long long b_k, int b_packed,
-                   const uint8_t* __restrict__ bs, long long bs_n, long long bs_g, float alpha,
-                   Out* __restrict__ c, int M, int N, int K) {
+                   const uint8_t* __restrict__ bs, long long bs_n, long long bs_g,
+                   const float* __restrict__ alpha_ptr, float alpha_val, Out* __restrict__ c,
+                   int M, int N, int K) {
   __shared__ float As[BK][PAD];
   __shared__ float Bs[BK][PAD];
+  __shared__ float Sa[BK / 32][BM];
+  __shared__ float Sb[BK / 32][BN];
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
-  float acc[4][4];
+  double acc[4][4];
   zero(acc);
   for (int k0 = 0; k0 < K; k0 += BK) {
-    decode_mx<BK>(As, a, a_m, a_k, a_packed, as, as_m, as_g, m0, M, k0, K, tid);
-    decode_mx<BK>(Bs, b, b_n, b_k, b_packed, bs, bs_n, bs_g, n0, N, k0, K, tid);
+    decode_mx<BK>(As, Sa, a, a_m, a_k, a_packed, as, as_m, as_g, m0, M, k0, K, tid);
+    decode_mx<BK>(Bs, Sb, b, b_n, b_k, b_packed, bs, bs_n, bs_g, n0, N, k0, K, tid);
     __syncthreads();
-    mx_accumulate(acc, As, Bs, BK, tx, ty);
+    mx_accumulate_group(acc, As, Bs, Sa, Sb, 0, tx, ty);
     __syncthreads();
   }
-  store(c, acc, alpha, m0, n0, M, N, tx, ty);
+  store(c, acc, alpha_ptr != nullptr ? *alpha_ptr : alpha_val, m0, n0, M, N, tx, ty);
 }
 
 }  // namespace
 
+// a'[m, k] = a[m * a_m + (k / 2) * a_k] (packed, element 2i in the low
+// nibble) or a[m * a_m + k * a_k] (codes, a_packed 0), a's scales
+// as[m * as_m + g * as_g]; likewise b' [N, K] and bs; alpha fp32 on the
+// device, or alpha_val where alpha is null; c [M, N] bf16 or (out_f32)
+// fp32; K % 32 == 0.  With part == nullptr the tile kernel runs, on any
+// strides.  With part, the decode kernel (dec::run): packed operands, M <=
+// 16, b and bs K-major (b_n == bs_n == 1), kc a multiple of 256 and at
+// most 2048, part and counters as dec::run states.  What a kernel does not
+// take returns cudaErrorInvalidValue.
 extern "C" int qt_gemm_fp4_mx(const void* a, long long a_m, long long a_k, int a_packed,
                               const void* as, long long as_m, long long as_g, const void* b,
                               long long b_n, long long b_k, int b_packed, const void* bs,
-                              long long bs_n, long long bs_g, float alpha, void* c, int out_f32,
-                              int M, int N, int K, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                              long long bs_n, long long bs_g, const void* alpha,
+                              float alpha_val, void* c, int out_f32, int M, int N, int K,
+                              void* part, void* counters, int kc, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t *ap = (const uint8_t*)a, *asp = (const uint8_t*)as;
+  const uint8_t *bp = (const uint8_t*)b, *bsp = (const uint8_t*)bs;
+  const float* al = (const float*)alpha;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 32) return (int)cudaErrorInvalidValue;
+  if (part != nullptr) {
+    if (!a_packed || !b_packed || b_n != 1 || bs_n != 1) return (int)cudaErrorInvalidValue;
+    return dec::run<dec::Mx>(ap, a_m, a_k, asp, as_m, as_g, bp, b_k, bsp, bs_g, al, alpha_val, c,
+                             out_f32, M, N, K, kc, (double*)part, (int*)counters, st);
+  }
+  if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   if (out_f32)
-    gemm_fp4_mx_kernel<float><<<grid, THREADS, 0, st>>>(
-        (const uint8_t*)a, a_m, a_k, a_packed, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n,
-        b_k, b_packed, (const uint8_t*)bs, bs_n, bs_g, alpha, (float*)c, M, N, K);
+    gemm_fp4_mx_kernel<float><<<grid, THREADS, 0, st>>>(ap, a_m, a_k, a_packed, asp, as_m, as_g, bp,
+                                                        b_n, b_k, b_packed, bsp, bs_n, bs_g, al,
+                                                        alpha_val, (float*)c, M, N, K);
   else
     gemm_fp4_mx_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        (const uint8_t*)a, a_m, a_k, a_packed, (const uint8_t*)as, as_m, as_g, (const uint8_t*)b, b_n,
-        b_k, b_packed, (const uint8_t*)bs, bs_n, bs_g, alpha, (__nv_bfloat16*)c, M, N, K);
+        ap, a_m, a_k, a_packed, asp, as_m, as_g, bp, b_n, b_k, b_packed, bsp, bs_n, bs_g, al,
+        alpha_val, (__nv_bfloat16*)c, M, N, K);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
-// The 64x64 output tile of the fp4 GEMMs, shared by K4 (gemm_fp4_mx.cu),
-// K7 (gemm_fp4_nv.cu) and the single-kernel linears K16 / K17
+// The 64x64 output tile of the fp4 GEMMs, shared by K4's tile kernel
+// (gemm_fp4_mx.cu) and the single-kernel linears K16 / K17
 // (fused_linear.cu): the slab decoders, the accumulation steps and the
-// epilogue.  One copy of each keeps the four kernels' sums, and so their
-// bits, the same: K16 equals K1 + K4 and K17 equals K5 + K7 because they
-// run this code on the same decoded values.
+// epilogue (whose `out` K7's kernels use too).  Both formats fold exact
+// group terms into fp64 in ascending k: K16 equals K1 + K4 because K16
+// runs K4's step on the same decoded values, and K17 equals K5 + K7
+// because K7's kernels add the same exact terms (its prefill kernel in
+// the same order).
 //
 // 256 threads hold 4x4 outputs each: thread (tx, ty) = (tid % 16, tid /
 // 16) owns rows ty + 16 i and columns tx + 16 j.  A slab is BK columns of
@@ -21,13 +23,15 @@ constexpr int PAD = 65;  // slab row stride: conflict-free stores along k and al
 
 // decode the [rows r0.., k k0..] slab, BK wide, of a logical [R, K] MXFP4
 // operand (codes packed two per byte when `packed`, element 2i in the
-// low nibble) with its e8m0 scales s[r * s_r + g * s_g] into t[k][row]:
-// code times scale, exact in bf16 (e2m1_decode_scaled); zero beyond R and K
+// low nibble) into t[k][row] as e2m1 values, and its BK/32 groups' e8m0
+// scales s[r * s_r + g * s_g] into ts[g][row] as fp32 2^(byte - 127)
+// (exact: byte 0 is the subnormal 2^-127, 255 NaN); zero beyond R and K
 template <int BK>
-__device__ __forceinline__ void decode_mx(float (*t)[PAD], const uint8_t* __restrict__ q,
-                                          long long q_r, long long q_k, int packed,
-                                          const uint8_t* __restrict__ s, long long s_r,
-                                          long long s_g, int r0, int R, int k0, int K, int tid) {
+__device__ __forceinline__ void decode_mx(float (*t)[PAD], float (*ts)[BM],
+                                          const uint8_t* __restrict__ q, long long q_r,
+                                          long long q_k, int packed, const uint8_t* __restrict__ s,
+                                          long long s_r, long long s_g, int r0, int R, int k0,
+                                          int K, int tid) {
   const bool r_fast = q_r == 1;
 #pragma unroll (BK == 32 ? 8 : 4)  // whole for 32-wide slabs, 4 of 32 steps for 128
   for (int j = 0; j < BM * BK / THREADS; ++j) {
@@ -37,11 +41,16 @@ __device__ __forceinline__ void decode_mx(float (*t)[PAD], const uint8_t* __rest
     const int r = r0 + rr, kg = k0 + kk;
     float v = 0.f;
     if (r < R && kg < K) {
-      const int code = packed ? (q[(long long)r * q_r + (long long)(kg >> 1) * q_k] >> ((kg & 1) * 4)) & 0xF
+      const int code = packed ? q[(long long)r * q_r + (long long)(kg >> 1) * q_k] >> ((kg & 1) * 4)
                               : q[(long long)r * q_r + (long long)kg * q_k];
-      v = e2m1_decode_scaled(code, s[(long long)r * s_r + (long long)(kg >> 5) * s_g]);
+      v = e2m1_value(code & 0xF);
     }
     t[kk][rr] = v;
+  }
+  for (int i = tid; i < BK / 32 * BM; i += THREADS) {
+    const int g = i / BM, rr = i % BM, r = r0 + rr, kg = k0 + g * 32;
+    ts[g][rr] = (r < R && kg < K) ? e8m0_decode(s[(long long)r * s_r + (long long)(kg >> 5) * s_g])
+                                  : 0.f;
   }
 }
 
@@ -82,13 +91,20 @@ __device__ __forceinline__ void zero(Acc (&acc)[4][4]) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 }
 
-// the MX sum over slab columns 0..kw-1: one fmaf per k, k ascending.  The
-// products of two exact bf16 values are exact in fp32, so the sum rounds
-// like the fp64 reference while its partial sums are exact.
-__device__ __forceinline__ void mx_accumulate(float (&acc)[4][4], const float (*a)[PAD],
-                                              const float (*b)[PAD], int kw, int tx, int ty) {
-#pragma unroll 8
-  for (int kk = 0; kk < kw; ++kk) {
+// the MX step for 32-group g of the slab: the fp32 sum of its 32 e2m1
+// products (multiples of 1/4 up to 1152: exact), times both scales in
+// fp64 (powers of two from 2^-127 to 2^127, which fp32 would flush or
+// overflow: exact), added into fp64, which stays exact while a row
+// pair's group terms span fewer than ~40 binades.  K4 and K16 fold their
+// terms in ascending k; the decode kernel (gemm_fp4_decode.cuh) adds the
+// same exact terms in another order
+__device__ __forceinline__ void mx_accumulate_group(double (&acc)[4][4], const float (*a)[PAD],
+                                                    const float (*b)[PAD], const float (*sa)[BM],
+                                                    const float (*sb)[BN], int g, int tx, int ty) {
+  float p[4][4];
+  zero(p);
+#pragma unroll
+  for (int kk = g * 32; kk < g * 32 + 32; ++kk) {
     float av[4], bv[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) av[i] = a[kk][ty + 16 * i];
@@ -97,7 +113,14 @@ __device__ __forceinline__ void mx_accumulate(float (&acc)[4][4], const float (*
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j) p[i][j] = fmaf(av[i], bv[j], p[i][j]);  // exact
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double s = (double)sa[g][ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[i][j] += (double)p[i][j] * s * (double)sb[g][tx + 16 * j];  // exact term
   }
 }
 
@@ -131,24 +154,21 @@ __device__ __forceinline__ void nv_accumulate_group(double (&acc)[4][4], const f
   }
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(double v) { return __double2float_rn(v); }
-
 __device__ __forceinline__ void out(__nv_bfloat16* c, long long i, float y) { c[i] = __float2bfloat16_rn(y); }
 __device__ __forceinline__ void out(float* c, long long i, float y) { c[i] = y; }
 
 // c[m, n] = Out(float(acc) * alpha) for the tile's outputs below M and N
-// (Out bf16, rounded to nearest even, or fp32): the fp64 NV sum is rounded
+// (Out bf16, rounded to nearest even, or fp32): the fp64 sum is rounded
 // once to fp32 first
-template <typename Acc, typename Out = __nv_bfloat16>
-__device__ __forceinline__ void store(Out* __restrict__ c, const Acc (&acc)[4][4], float alpha,
+template <typename Out = __nv_bfloat16>
+__device__ __forceinline__ void store(Out* __restrict__ c, const double (&acc)[4][4], float alpha,
                                       int m0, int n0, int M, int N, int tx, int ty) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < M && n < N) out(c, (long long)m * N + n, __fmul_rn(to_f32(acc[i][j]), alpha));
+      if (m < M && n < N) out(c, (long long)m * N + n, __fmul_rn(__double2float_rn(acc[i][j]), alpha));
     }
 }
 

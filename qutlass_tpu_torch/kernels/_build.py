@@ -39,7 +39,7 @@ _SIGNATURES = {
     "qt_gemm_int8_rank1": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _F, _P, _I, _I,
                            _I, _I, _P, _P, _I, _P],
     "qt_gemm_fp4_mx": [_P, _LL, _LL, _I, _P, _LL, _LL, _P, _LL, _LL, _I, _P,
-                       _LL, _LL, _F, _P, _I, _I, _I, _I, _P],
+                       _LL, _LL, _P, _F, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     "qt_quantize_nv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _P],
     "qt_quantize_nv_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "qt_gemm_fp4_nv": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,

@@ -8,9 +8,9 @@ device to the kernel.  Operands are passed to the kernels as logical row
 views with their strides, so row-major, K-major and sliced scale buffers
 need no copy.  A launch adds one to ``dispatch.launch_counts``.  An
 alpha that is a CUDA tensor stays on the card (no host sync): K3 takes
-it folded into ``sa``, K7 and K11 read it from device memory.  K3, K4
-and K7 write bf16 or, with ``out_dtype=torch.float32``, the fp32 result
-unrounded.
+it folded into ``sa``, K4, K7 and K11 read it from device memory (K4 takes
+a number by value, with no launch for it).  K3, K4 and K7 write bf16 or,
+with ``out_dtype=torch.float32``, the fp32 result unrounded.
 
 K3 is two kernels, picked by M: up to ``DECODE_M`` rows the decode
 kernel, which splits K over blocks (``decode_split``) and adds the int32
@@ -18,14 +18,17 @@ partial sums in a workspace allocated here, with one counter a column
 tile that the kernel leaves zero (kept per device and stream, so two
 streams never share one); above it the prefill kernel.
 
-K7 is two kernels too: in the ``kmajor`` layout up to ``DECODE_M`` rows
-its decode kernel, which splits K over blocks (``nv_decode_split``) and
-adds exact fp64 partial sums in a workspace allocated here, with the
-same per-stream counters; every other call (``tn`` at any M, ``kmajor``
-above ``DECODE_M``) its prefill kernel, which takes each 16-group's sum
-on the tensor cores and folds it into one fp64 chain an output, with no
-workspace.  A launch counts as ``gemm_fp4_nv`` and also as
-``gemm_fp4_nv_decode`` or ``gemm_fp4_nv_prefill``.
+K4 and K7 are two kernels too.  In the ``kmajor`` layout up to
+``DECODE_M`` rows both run one decode kernel (``csrc/gemm_fp4_decode.cuh``,
+templated on the format), which splits K over blocks
+(``fp4_decode_split``) and adds exact fp64 partial sums in a workspace
+allocated here, with the same per-stream counters.  Every other call runs
+K4's tile kernel (CUDA cores) or K7's prefill kernel (each 16-group's sum
+on the tensor cores), which fold each output's exact group terms into one
+fp64 chain in ascending k, with no workspace.  A launch counts as
+``gemm_fp4_mx`` and also as ``gemm_fp4_mx_decode`` or ``gemm_fp4_mx_tile``;
+as ``gemm_fp4_nv`` and also as ``gemm_fp4_nv_decode`` or
+``gemm_fp4_nv_prefill``.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from . import _build
 DECODE_M = 16            # K3's decode kernel takes M <= 16 rows
 _DECODE_MAX_KC = 2048    # its K slices are at most this long
 _counters: dict[tuple[int, int], torch.Tensor] = {}
-_NV_DECODE_BLOCKS = 2    # K7's decode grid: resident blocks an SM
+_FP4_DECODE_BLOCKS = 2   # K4's and K7's decode grid: resident blocks an SM
 
 _NV_PLAIN = {"tn": _emu.matmul_nvf4_bf16_tn,
              "kmajor": _emu.matmul_nvf4_bf16_kmajor}
@@ -83,25 +86,27 @@ def decode_split(n: int, k: int, sms: int, kmajor_weight: bool) -> tuple[int, in
     return kc, -(-k // kc)
 
 
-def nv_decode_cols(m: int) -> int:
-    """Columns a block of K7's decode kernel owns at M = m rows: 32
-    threads of 16 / MB columns, MB = 4, 8 or 16 the least bucket holding m
-    (a thread keeps MB x columns fp64 sums)."""
+def fp4_decode_cols(m: int) -> int:
+    """Columns a block of the fp4 decode kernel (K4's and K7's) owns at M =
+    m rows: 32 threads of 16 / MB columns, MB = 4, 8 or 16 the least
+    bucket holding m (a thread keeps MB x columns fp64 sums)."""
     return 32 * (16 // (4 if m <= 4 else 8 if m <= 8 else 16))
 
 
-def nv_decode_split(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
-    """(K slice length, number of slices) of K7's decode kernel: as many
-    slices as keep every block resident at once (two 256-thread blocks an
-    SM, no tail wave), but no more than keep the fp64 partial sums
-    (slices x M x N x 8 bytes) within a quarter of the weight's bytes (N x
-    K x 0.5625); slices a multiple of 128 (a 16-group for each of the
-    block's 8 warps) and at most 2048 long."""
-    tiles = -(-n // nv_decode_cols(m))
-    want = max(1, _NV_DECODE_BLOCKS * sms // tiles)
-    cap = max(1, k * 9 // (16 * 4 * 8 * m))
+def fp4_decode_split(m: int, n: int, k: int, sms: int, group: int) -> tuple[int, int]:
+    """(K slice length, number of slices) of the fp4 decode kernel for
+    ``group`` = 16 (K7, NVFP4) or 32 (K4, MXFP4): as many slices as keep
+    every block resident at once (two 256-thread blocks an SM, no tail
+    wave), but no more than keep the fp64 partial sums (slices x M x N x 8
+    bytes) within a quarter of the weight's bytes (N x K x (1/2 + 1/group):
+    0.5625 for NV, 0.53125 for MX); slices a multiple of 8 groups (one for
+    each of the block's 8 warps) and at most 2048 long."""
+    gran = 8 * group
+    tiles = -(-n // fp4_decode_cols(m))
+    want = max(1, _FP4_DECODE_BLOCKS * sms // tiles)
+    cap = max(1, k * (group + 2) // (2 * group * 4 * 8 * m))
     kc = -(-k // min(want, cap))
-    kc = min(_DECODE_MAX_KC, max(128, -(-kc // 128) * 128))
+    kc = min(_DECODE_MAX_KC, max(gran, -(-kc // gran) * gran))
     return kc, -(-k // kc)
 
 
@@ -190,15 +195,31 @@ def gemm_fp4_mx_plain(a, b, a_sf, b_sf, alpha, *, layout: str,
     return _FP4_PLAIN[layout](a, b, a_sf, b_sf, alpha, out_dtype)
 
 
+def _fp4_decode_workspace(dev: torch.device, m: int, n: int, k: int, group: int):
+    """(kc, fp64 partials [splits, m, n], counters) of a decode launch."""
+    kc, splits = fp4_decode_split(m, n, k, torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count, group)
+    part = torch.empty((splits, m, n), dtype=torch.float64, device=dev)
+    return kc, part, _decode_counters(dev, -(-n // fp4_decode_cols(m)))
+
+
 def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
                 b_sf: torch.Tensor, alpha, *, layout: str,
                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Kernel K4: C[M, N] = out_dtype((dq(a) @ dq(b)^T) * alpha).
+    """Kernel K4: C[M, N] = out_dtype((dq(a) @ dq(b)^T) * alpha), the exact
+    32-group terms folded in fp64 (the plain version's fp64 sum while they
+    span fewer than ~40 binades; ``ops.emulation.gemm_fp4_mx_groupfold_plain``
+    states the tile's order).
 
     ``layout="tn"``: a/b packed u8 [M, K/2] / [N, K/2], scales [M, K/32]
     / [N, K/32].  ``"kmajor"``: a/b packed [K/2, M] / [K/2, N], scales
     [K/32, M] / [K/32, N].  ``"kmajor_codes"``: a unpacked codes [K, M],
-    b packed [K/2, N].
+    b packed [K/2, N].  ``alpha``: a number (passed by value) or a
+    1-element tensor (a CUDA one is read on the card: no host sync).
+    K % 32 == 0.  ``kmajor`` at M <= ``DECODE_M`` runs the
+    decode kernel, which takes a weight and scales of unit stride along
+    N; any other call runs the tile kernel, on any strides.  Anything
+    else raises; nothing falls back to the plain version.
     """
     if layout not in _FP4_PLAIN:
         raise ValueError(f"invalid layout {layout!r}")
@@ -221,16 +242,36 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     if tuple(as_r.shape) != (m, k // 32) or tuple(bs_r.shape) != (n, k // 32):
         raise ValueError(f"scale shapes {tuple(a_sf.shape)} / {tuple(b_sf.shape)} "
                          f"do not match M={m}, N={n}, K={k} ({layout})")
+    if k % 32 or min(m, n, k) == 0:
+        raise ValueError(f"K4 takes K % 32 == 0 and no empty operand; got M, N, K = "
+                         f"{m}, {n}, {k}")
+    al = alpha_val = None
+    if isinstance(alpha, torch.Tensor) and alpha.device.type == "cuda":
+        al = alpha.reshape(()).to(device=a.device, dtype=torch.float32)
+    else:
+        alpha_val = _alpha_float(alpha)             # a number, or a CPU tensor: no sync
+    part = cnt = None
+    kc = 0
+    decode = layout == "kmajor" and m <= DECODE_M
+    if decode:
+        if b_r.stride(0) != 1 or bs_r.stride(0) != 1:
+            raise ValueError(f"K4's decode kernel takes a weight and scales of unit stride "
+                             f"along N; got b strides {b.stride()}, b_sf strides "
+                             f"{b_sf.stride()}")
+        kc, part, cnt = _fp4_decode_workspace(a.device, m, n, k, 32)
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.library().qt_gemm_fp4_mx(
         a_r.data_ptr(), a_r.stride(0), a_r.stride(1), int(a_packed),
         as_r.data_ptr(), as_r.stride(0), as_r.stride(1),
         b_r.data_ptr(), b_r.stride(0), b_r.stride(1), 1,
         bs_r.data_ptr(), bs_r.stride(0), bs_r.stride(1),
-        _alpha_float(alpha), c.data_ptr(), int(out_dtype == torch.float32), m, n, k,
-        _stream(a))
+        None if al is None else al.data_ptr(), alpha_val or 0.0, c.data_ptr(),
+        int(out_dtype == torch.float32), m, n, k,
+        None if part is None else part.data_ptr(), None if cnt is None else cnt.data_ptr(),
+        kc, _stream(a))
     _build.check(err, "gemm_fp4_mx")
     dispatch.note_launch("gemm_fp4_mx")
+    dispatch.note_launch("gemm_fp4_mx_decode" if decode else "gemm_fp4_mx_tile")
     return c
 
 
@@ -285,10 +326,7 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
             raise ValueError(f"K7's decode kernel takes a weight and scales of unit stride "
                              f"along N; got b strides {b.stride()}, b_sf strides "
                              f"{b_sf.stride()}")
-        kc, splits = nv_decode_split(m, n, k, torch.cuda.get_device_properties(a.device)
-                                     .multi_processor_count)
-        part = torch.empty((splits, m, n), dtype=torch.float64, device=a.device)
-        cnt = _decode_counters(a.device, -(-n // nv_decode_cols(m)))
+        kc, part, cnt = _fp4_decode_workspace(a.device, m, n, k, 16)
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.library().qt_gemm_fp4_nv(
         a_r.data_ptr(), a_r.stride(0), a_r.stride(1),

@@ -213,6 +213,38 @@ def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha, out_dtype=torch.b
                              alpha, out_dtype)
 
 
+def gemm_fp4_mx_groupfold_plain(a, b, a_sf, b_sf, alpha, *, layout: str,
+                                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The arithmetic of K4 and K16, operands as for ``matmul_mxf4_bf16_tn``
+    (``layout="tn"``), ``_kmajor`` or ``_kmajor_codes``: per 32-group the
+    integer sum s = 4p of the doubled e2m1 values' products, the exact term
+    p * sa * sb in fp64 (sa, sb = 2^(byte - 127), NaN at byte 255), added
+    into one fp64 accumulator an output in ascending k (one rounding a
+    group); then one rounding to fp32, times alpha in fp32.
+
+    Equal to the fp64 product (``matmul_mxf4_*``) while a row pair's group
+    terms span fewer than ~40 binades and no scale byte is 253 or 254: at
+    those bytes the plain versions' bf16 dequant saturates to inf
+    (``codecs.e2m1_decode_scaled_bf16``) while the fold keeps the exact
+    term.  Beyond that it is the tile kernel's order, which the plain
+    versions do not fix.  Used by the tests, not by the main path."""
+    if layout in ("kmajor", "kmajor_codes"):
+        a, b, a_sf, b_sf = a.T, b.T, a_sf.T, b_sf.T
+    elif layout != "tn":
+        raise ValueError(f"invalid layout {layout!r}")
+    ca = a.to(torch.int32) if layout == "kmajor_codes" else unpack_codes(a)
+    m2a = C.e2m1_decode_f32(ca).to(torch.float64) * 2                # exact integers
+    m2b = C.e2m1_decode_f32(unpack_codes(b)).to(torch.float64) * 2
+    sa = C.e8m0_decode_f32(a_sf).to(torch.float64) / 4                # exact powers of two
+    sb = C.e8m0_decode_f32(b_sf).to(torch.float64)
+    acc = torch.zeros((m2a.shape[0], m2b.shape[0]), dtype=torch.float64, device=m2a.device)
+    for g in range(m2a.shape[1] // 32):
+        ks = slice(32 * g, 32 * g + 32)
+        s = m2a[:, ks] @ m2b[:, ks].T                   # integers below 2^13: exact
+        acc = acc + (s * sa[:, g, None]) * sb[None, :, g]  # the term is exact
+    return (acc.to(torch.float32) * as_alpha(alpha, acc.device)).to(check_out_dtype(out_dtype))
+
+
 # ---------------------------------------------------------------------------
 # NVFP4 GEMM (plain version of kernel K7)
 # ---------------------------------------------------------------------------

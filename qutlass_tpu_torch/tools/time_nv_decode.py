@@ -1,12 +1,14 @@
-"""Time variants of K7's decode kernel (``csrc/gemm_fp4_nv.cu``) at the
-decode shapes of Qwen3-8B (M = 4; (K, N) = (4096, 4096), (4096, 1024),
-(4096, 12288), (12288, 4096)) over a range of K-slice counts.
+"""Time variants of K7's decode kernel (``dec::gemm_fp4_decode<dec::Nv>``
+in ``csrc/gemm_fp4_decode.cuh``, launched by ``csrc/gemm_fp4_nv.cu``) at
+the decode shapes of Qwen3-8B (M = 4; (K, N) = (4096, 4096), (4096,
+1024), (4096, 12288), (12288, 4096)) over a range of K-slice counts.
 
-Each variant is this checkout's source with the constants ``DEPTH``
-(groups whose loads are in flight while one is multiplied) and ``COLS4``
-(columns a thread owns at M <= 4) set to the variant's values, compiled
-alone into a library of its own (all variants' ``nvcc`` in parallel) and
-called through its C entry point.  Every variant's output at every shape and slice count is first
+Each variant is this checkout's ``gemm_fp4_nv.cu`` built against a copy
+of the decode header with the constants ``DEPTH`` (16-groups whose loads
+are in flight while one is multiplied) and ``COLS4`` (columns a thread
+owns at M <= 4) set to the variant's values, compiled alone into a
+library of its own (all variants' ``nvcc`` in parallel) and called
+through its C entry point.  Every variant's output at every shape and slice count is first
 checked bitwise against the plain version.  Two probes, which compute
 something else and are not checked, split the time: ``loads`` keeps the
 weight loads and drops the arithmetic on them, ``compute`` keeps the
@@ -30,30 +32,37 @@ SHAPES_KN = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
 M = 4
 
 
-LOADS = ("      nv_group<MB, C>(acc, buf[u], act + (gu - gbeg) * 16, kc, sc_s + (gu - gbeg), "
-         "gpr, tab);",
+LOADS = ("      group<F, MB, C>(acc, buf[u], act + (gu - gbeg) * G, kc, sc_s + (gu - gbeg), gpr, "
+         "tab);",
          "      acc[0][0] += (double)(buf[u][0] ^ buf[u][1] ^ buf[u][2] ^ buf[u][3] ^ buf[u][4] ^ "
          "buf[u][5] ^ buf[u][6] ^ buf[u][7] ^ buf[u][8]);")
-COMPUTE = ("    for (int r = 0; r < 8; ++r, row += b_k) f[r] = load_cols<C, VEC>(row, valid);\n"
-           "    f[8] = load_cols<C, VEC>(sp + (long long)g * bs_g, valid);",
-           "    for (int r = 0; r < 9; ++r) f[r] = (uint32_t)g * 0x9E3779B1u + r * 0x01010101u;")
+COMPUTE = ("    for (int r = 0; r < R; ++r, row += b_k) f[r] = load_cols<C, VEC>(row, valid);\n"
+           "    f[R] = load_cols<C, VEC>(sp + (long long)g * bs_g, valid);",
+           "    for (int r = 0; r <= R; ++r) f[r] = (uint32_t)g * 0x9E3779B1u + r * 0x01010101u;")
 
 
 def build(variants, tmp: Path) -> dict:
-    """Compile each (depth, cols4, probe) variant of gemm_fp4_nv.cu;
-    return the loaded libraries."""
+    """Compile gemm_fp4_nv.cu against each (depth, cols4, probe) variant of
+    the decode header, each in an include directory of its own beside
+    copies of the other headers; return the loaded libraries."""
     from qutlass_tpu_torch.kernels import _build
     from qutlass_tpu_torch.tools import _variants as V
+    header = (_build.CSRC / "gemm_fp4_decode.cuh").read_text()
     src = (_build.CSRC / "gemm_fp4_nv.cu").read_text()
     sources, keys = {}, {}
     for depth, cols4, probe in variants:
-        text = V.set_const(src, "DEPTH", depth, "DEPTH")
+        text = V.set_const(header, "DEPTH", depth, "DEPTH")
         text = V.set_const(text, "COLS4", cols4, "COLS4")
         if probe:
             text = V.replace(text, *(LOADS if probe == "loads" else COMPUTE), f"probe {probe}")
         name = f"nv_{depth}_{cols4}_{probe or 'full'}"
-        sources[name], keys[name] = (text, _build.CSRC), (depth, cols4, probe)
-    libs = V.build(sources, tmp, "qt_gemm_fp4_nv", "decodeILi4ELb1E13__nv_bfloat16")
+        inc = tmp / f"{name}_include"
+        inc.mkdir()
+        for other in _build.CSRC.glob("*.cuh"):
+            (inc / other.name).write_text(other.read_text())
+        (inc / "gemm_fp4_decode.cuh").write_text(text)
+        sources[name], keys[name] = (src, inc), (depth, cols4, probe)
+    libs = V.build(sources, tmp, "qt_gemm_fp4_nv", "Li4ELb1E13__nv_bfloat16")
     return {keys[name]: lib for name, lib in libs.items()}
 
 

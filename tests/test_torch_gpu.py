@@ -18,7 +18,12 @@ quartet_linear step on the card within cosine 0.9999 of the CPU step
 (K1's codes and cuBLAS's sums differ from the CPU's in order); K16 and
 K17 bitwise against the composition on the card (K1 + K4, K5 + K7) and
 against their plain versions in every row whose quantized activation
-the plain quantizer gives bit for bit; K7's split-K decode kernel (M <=
+the plain quantizer gives bit for bit; K4's split-K decode kernel (M <=
+16, K-major) and its tile kernel bitwise against the plain version where
+the fp64 sums of exact group terms are exact, and against
+``gemm_fp4_mx_groupfold_plain`` (the tile's order, which K16 shares)
+where they round or where the plain version's bf16 dequant saturates
+(scale bytes 253-254), NaN positions aside; K7's split-K decode kernel (M <=
 16) bitwise against its plain version (its fp64 sums of exact group
 terms are exact for the scale bytes it is given, so the split order
 moves no bit), NaN positions aside where a NaN scale byte is given;
@@ -39,7 +44,7 @@ from qutlass_tpu_torch.ops import dispatch
 from qutlass_tpu_torch.ops import emulation as E
 from qutlass_tpu_torch.nn import linear as L
 from qutlass_tpu_torch.ops import int8path as I8
-from torch_helpers import nan_equal, nv_adversarial
+from torch_helpers import mx_adversarial, mx_spread, nan_equal, nv_adversarial
 
 pytestmark = pytest.mark.gpu
 
@@ -285,7 +290,8 @@ def test_gemm_int8_rank1_refuses_what_it_cannot_take(dev):
 def test_k2_k3_equal_k4_at_deficit_3(dev, m):
     """The main path's kernels K2 (activation) and K3 equal the fp4 GEMM K4
     on the same MXFP4 values in every row whose deficit is <= 3, through
-    the decode (M = 4) and the prefill (M = 64) kernel."""
+    K3's and K4's decode kernels (M = 4) and K3's prefill and K4's tile
+    kernel (M = 64)."""
     h = qt.hadamard_matrix(32, device=dev)
     x, w = _x(dev, m, 4096, seed=6), _x(dev, 1024, 4096, seed=7, scale=4096 ** -0.5)
     ai, sa, sbytes = Q.quantize_mx_int8(x, h, rot_size=32)
@@ -293,7 +299,8 @@ def test_k2_k3_equal_k4_at_deficit_3(dev, m):
     wqt, wst = Q.quantize_mx(w, h, rot_size=32, layout="kmajor")
     wi, sb, dw = I8.prepare_weight_int8(wqt, wst)
     y3 = I8.matmul_mxf4_bf16_int8_kmajor(ai, wi, sa, sb, 1.0)
-    y4 = G.gemm_fp4_mx(xqt, wqt, xst, wst, 1.0, layout="kmajor")
+    y4, dec, tile = _k4(xqt, wqt, xst, wst, 1.0)
+    assert (dec, tile) == ((1, 0) if m <= G.DECODE_M else (0, 1))
     se = sbytes.to(torch.int32)
     ai1 = I8.encode_int8(xqt, xst, kmajor=True)[0]      # K1's codes, encoded
     rows = ((se.amax(0) - se).amax(0) <= 3) & (sbytes == xst).all(0) & (ai == ai1).all(0)
@@ -394,6 +401,186 @@ def test_gemm_fp4_nv_kernel(dev, m, n, k):
                                 xst.T.contiguous(), wst.T.contiguous(), 0.37)
     torch.cuda.synchronize()
     assert torch.equal(tn, got)
+
+
+# K4: the split-K decode kernel (kmajor, M <= 16) and the tile kernel
+
+def _mx_operands(dev, m, n, k, seed, lo=120, hi=136):
+    """Random K-major MXFP4 operands: packed codes (every code) [K/2, M] /
+    [K/2, N] and e8m0 scale bytes in [lo, hi) [K/32, M] / [K/32, N]; with
+    the default bytes every fp64 sum of group terms is exact up to K =
+    12288 (30 binades + 13 bits of a group sum + 9 bits of 384 groups)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes = [torch.randint(0, 256, (k // 2, r), generator=g, device=dev, dtype=torch.uint8)
+             for r in (m, n)]
+    scales = [torch.randint(lo, hi, (k // 32, r), generator=g, device=dev, dtype=torch.uint8)
+              for r in (m, n)]
+    return codes[0], codes[1], scales[0], scales[1]
+
+
+def _k4(a, b, a_sf, b_sf, alpha, layout="kmajor", out_dtype=torch.bfloat16):
+    """K4 and the launches of its decode and tile kernels."""
+    names = ("gemm_fp4_mx_decode", "gemm_fp4_mx_tile")
+    before = [dispatch.launch_counts[k] for k in names]
+    y = G.gemm_fp4_mx(a, b, a_sf, b_sf, alpha, layout=layout, out_dtype=out_dtype)
+    return (y, *(dispatch.launch_counts[k] - b0 for k, b0 in zip(names, before)))
+
+
+def _tn(ops):
+    """K-major operands -> the row-major (tn) layout."""
+    return tuple(t.T.contiguous() for t in ops)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 4096), (4096, 12288), (12288, 4096),
+                                 (4096, 1030)])
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 16])
+def test_gemm_fp4_mx_decode_kernel(dev, m, n, k, out_dtype):
+    """K4's split-K decode kernel (M <= 16, K-major; every MB bucket)
+    bitwise against the group fold and the plain version, alpha on the
+    card, at the decode shapes and at N % 4 != 0 (byte loads); the tile
+    kernel (the tn layout) gives the same bits, since the fp64 sums are
+    exact."""
+    ops = _mx_operands(dev, m, n, k, seed=m + n + k)
+    alpha = torch.tensor([0.37], device=dev)
+    got, dec, tile = _k4(*ops, alpha, out_dtype=out_dtype)
+    fold = E.gemm_fp4_mx_groupfold_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    want = G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    tn, tn_dec, tn_tile = _k4(*_tn(ops), alpha, "tn", out_dtype)
+    torch.cuda.synchronize()
+    assert (dec, tile, tn_dec, tn_tile) == (1, 0, 0, 1) and got.dtype == out_dtype
+    assert torch.equal(got, fold) and torch.equal(got, want) and torch.equal(tn, got)
+
+
+@pytest.mark.parametrize("m", [4, 16, 64])
+def test_gemm_fp4_mx_kernels_exact_where_an_fp32_chain_rounds(dev, m):
+    """Group scales spread over ~29 binades, where the fp32 chain K4 ran
+    before rounds: the decode kernel (M <= 16) or the tile kernel, and the
+    tile kernel in the tn layout, equal the plain version bit for bit."""
+    ops = tuple(t.to(dev) for t in mx_spread(m, 200, 4096, seed=m))
+    for od in (torch.bfloat16, torch.float32):
+        want = G.gemm_fp4_mx_plain(*ops, 0.37, layout="kmajor", out_dtype=od)
+        got, dec, _ = _k4(*ops, 0.37, out_dtype=od)
+        tn, _, tn_tile = _k4(*_tn(ops), 0.37, "tn", od)
+        torch.cuda.synchronize()
+        assert dec == (m <= G.DECODE_M) and tn_tile == 1
+        assert torch.equal(got, want) and torch.equal(tn, want)
+
+
+@pytest.mark.parametrize("m", [4, 64])
+def test_gemm_fp4_mx_kernels_where_the_bf16_dequant_saturates(dev, m):
+    """a's scale bytes 240-254, b's 0-14: the plain version's bf16 dequant
+    saturates to inf at bytes 253-254, the kernels keep the exact terms
+    and equal the group fold (exact here) in both layouts."""
+    ops = tuple(t.to(dev) for t in mx_spread(m, 72, 1024, seed=8, a_bytes=(240, 255),
+                                             b_bytes=(0, 15)))
+    fold = E.gemm_fp4_mx_groupfold_plain(*ops, 0.37, layout="kmajor")
+    got, dec, _ = _k4(*ops, 0.37)
+    tn = _k4(*_tn(ops), 0.37, "tn")[0]
+    plain = G.gemm_fp4_mx_plain(*ops, 0.37, layout="kmajor")
+    torch.cuda.synchronize()
+    assert dec == (m <= G.DECODE_M) and bool(torch.isfinite(fold.float()).all())
+    assert torch.equal(got, fold) and torch.equal(tn, fold)
+    assert not bool(torch.isfinite(plain.float()).all())
+
+
+@pytest.mark.parametrize("m,n,special,layout", [(4, 40, True, "tn"), (64, 200, False, "kmajor"),
+                                                (64, 200, False, "tn"), (305, 72, True, "kmajor"),
+                                                (305, 72, True, "tn"),
+                                                (512, 1024, True, "kmajor")])
+def test_gemm_fp4_mx_tile_kernel_where_fp64_sums_round(dev, m, n, special, layout):
+    """Where the fp64 sums round no order is bitwise against the fp64
+    product: the tile kernel (tn at any M, kmajor above 16 rows) equals
+    the group fold in ascending k (``gemm_fp4_mx_groupfold_plain``, which
+    K16 runs too) bit for bit, NaN positions included, and the fp64
+    product differs."""
+    ops = tuple(t.to(dev) for t in mx_adversarial(m, n, 4096, seed=m, special=special))
+    alpha = torch.tensor([0.37], device=dev)
+    want = E.gemm_fp4_mx_groupfold_plain(*ops, alpha, layout="kmajor", out_dtype=torch.float32)
+    fp64 = G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor", out_dtype=torch.float32)
+    got, _, tile = _k4(*(_tn(ops) if layout == "tn" else ops), alpha, layout, torch.float32)
+    torch.cuda.synchronize()
+    assert tile == 1 and nan_equal(got, want)
+    nan = torch.isnan(want)
+    assert bool(nan.any()) == special and not torch.equal(fp64[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_fp4_mx_decode_kernel_nan_scales(dev, out_dtype):
+    """NaN scale bytes (255) give NaN in their row or column, as in the
+    plain version and the tile kernel, at one slice and at several."""
+    for k in (512, 8192):
+        at, bt, ast, bst = _mx_operands(dev, 4, 200, k, seed=k)
+        ast[3, 1], bst[5, 7], bst[k // 32 - 1, 150] = 255, 255, 255
+        got, dec, _ = _k4(at, bt, ast, bst, 0.5, out_dtype=out_dtype)
+        want = G.gemm_fp4_mx_plain(at, bt, ast, bst, 0.5, layout="kmajor", out_dtype=out_dtype)
+        tile = _k4(*_tn((at, bt, ast, bst)), 0.5, "tn", out_dtype)[0]
+        torch.cuda.synchronize()
+        assert dec == 1 and nan_equal(got, want) and nan_equal(tile, want)
+        nan = torch.isnan(got.float())
+        assert bool(nan[1].all()) and bool(nan[:, 7].all()) and bool(nan[:, 150].all())
+        assert int(nan.sum()) == 200 + 2 * 4 - 2
+
+
+def test_gemm_fp4_mx_decode_kernel_repeats_bitwise(dev):
+    """At many slices, launches land in any order yet give the same bits,
+    and leave every arrival counter zero."""
+    ops = _mx_operands(dev, 4, 1024, 4096, seed=9)
+    assert G.fp4_decode_split(4, 1024, 4096, torch.cuda.get_device_properties(dev)
+                              .multi_processor_count, 32)[1] > 1
+    first = _k4(*ops, 0.75)[0]
+    for _ in range(3):
+        assert torch.equal(_k4(*ops, 0.75)[0], first)
+    torch.cuda.synchronize()
+    assert torch.equal(first, G.gemm_fp4_mx_plain(*ops, 0.75, layout="kmajor"))
+    assert all(int(c.abs().sum()) == 0 for c in G._counters.values())
+
+
+@pytest.mark.parametrize("k,n", [(4096, 12288), (12288, 4096)])
+def test_gemm_fp4_mx_decode_kernel_in_cuda_graph(dev, k, n):
+    """A decode call captured in a CUDA graph and replayed on new inputs and
+    a new device alpha equals the plain version: the counters are reset by
+    the kernel and alpha is read on the card, so nothing waits on the
+    host."""
+    ops = list(_mx_operands(dev, 4, n, k, seed=1))
+    alpha = torch.tensor([0.37], device=dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        G.gemm_fp4_mx(*ops, alpha, layout="kmajor")          # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = G.gemm_fp4_mx(*ops, alpha, layout="kmajor")
+    for seed in (2, 3):
+        for t, new in zip(ops, _mx_operands(dev, 4, n, k, seed=seed)):
+            t.copy_(new)
+        alpha.fill_(0.25 * seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor"))
+
+
+def test_gemm_fp4_mx_refuses_what_it_cannot_take(dev):
+    """At M <= 16 in the K-major layout, a weight or weight scales without
+    unit stride along N raise; so do K % 32 != 0 and empty operands.
+    Nothing launches and nothing falls back to the tile kernel or the
+    plain version."""
+    at, bt, ast, bst = _mx_operands(dev, 4, 128, 512, seed=4)
+    wide = torch.zeros((256, 256), dtype=torch.uint8, device=dev)
+    swide = torch.zeros((16, 256), dtype=torch.uint8, device=dev)
+    a48, b48, sa48, sb48 = (torch.zeros(shape, dtype=torch.uint8, device=dev)
+                            for shape in ((32, 24), (40, 24), (32, 1), (40, 1)))   # K = 48
+    e, es = (torch.zeros((0, c), dtype=torch.uint8, device=dev) for c in (256, 16))
+    dispatch.reset_launch_counts()
+    for args, layout in (((at, wide[:, ::2], ast, bst), "kmajor"),
+                         ((at, bt, ast, swide[:, ::2]), "kmajor"),
+                         ((at, bt.T.contiguous().T, ast, bst), "kmajor"),
+                         ((a48, b48, sa48, sb48), "tn"),
+                         ((e, bt.T.contiguous(), es, bst.T.contiguous()), "tn")):
+        with pytest.raises(ValueError):
+            G.gemm_fp4_mx(*args, 1.0, layout=layout)
+    assert dispatch.launch_counts["gemm_fp4_mx"] == 0
 
 
 def _nv_operands(dev, m, n, k, seed):
@@ -566,8 +753,8 @@ def test_gemm_fp4_nv_decode_kernel_repeats_bitwise(dev):
     """At many slices, launches land in any order yet give the same bits,
     and leave every arrival counter zero."""
     at, bt, ast, bst = _nv_operands(dev, 4, 1024, 4096, seed=9)
-    kc, splits = G.nv_decode_split(4, 1024, 4096, torch.cuda.get_device_properties(dev)
-                                   .multi_processor_count)
+    kc, splits = G.fp4_decode_split(4, 1024, 4096, torch.cuda.get_device_properties(dev)
+                                    .multi_processor_count, 16)
     assert splits > 1
     first = _k7_decode(at, bt, ast, bst, 0.75)[0]
     for _ in range(3):
@@ -1111,12 +1298,13 @@ def _fl_routes(fmt, method, x, h, wq, al, gs, rot):
 @pytest.mark.parametrize("m,n,k,rot", [(1, 96, 96, 32), (65, 70, 96, 16), (3, 200, 4096, 16),
                                        (65, 130, 4096, 64), (1, 1000, 12288, 128),
                                        (3, 70, 12288, 32), (4, 200, 4096, 32),
-                                       (64, 130, 4096, 16), (512, 96, 4096, 16)])
+                                       (16, 130, 4096, 32), (64, 130, 4096, 16),
+                                       (512, 96, 4096, 16)])
 @pytest.mark.parametrize("method", ["quest", "abs_max"])
 @pytest.mark.parametrize("fmt", ["mx", "nv"])
 def test_fused_linear_kernels(dev, fmt, method, m, n, k, rot):
-    """K16 / K17 bitwise against the composition on the card (for NV, K7's
-    decode kernel at M <= 16 and its prefill kernel above), and against
+    """K16 / K17 bitwise against the composition on the card (K4's and K7's
+    decode kernel at M <= 16, K4's tile and K7's prefill kernel above), and against
     the plain version in every row whose quantized activation the plain
     quantizer gives bit for bit (K1 / K5 sum the rotation in another
     order than cuBLAS: at most one such row may differ here)."""
@@ -1126,9 +1314,9 @@ def test_fused_linear_kernels(dev, fmt, method, m, n, k, rot):
     torch.cuda.synchronize()
     assert tuple(y.shape) == (m, n) and y.dtype == torch.bfloat16
     assert _same_or_nan(y, comp)
-    if fmt == "nv":
-        gemm = "gemm_fp4_nv_decode" if m <= G.DECODE_M else "gemm_fp4_nv_prefill"
-        assert dispatch.launch_counts[gemm] == dispatch.launch_counts["fused_linear_nv"] == 1
+    gemm = f"gemm_fp4_{fmt}_" + ("decode" if m <= G.DECODE_M else
+                                 "tile" if fmt == "mx" else "prefill")
+    assert dispatch.launch_counts[gemm] == dispatch.launch_counts[f"fused_linear_{fmt}"] == 1
     assert int((~rows).sum()) <= 1
     assert _same_or_nan(y[rows], plain[rows])
 

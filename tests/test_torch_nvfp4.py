@@ -307,10 +307,10 @@ def test_nv_decode_split_invariants(k, n, m):
     group); the fp64 partial sums, slices x M x N x 8 bytes, at most a
     quarter of the weight's N x K x 0.5625 bytes; the column tile holds
     the fp64 sums of at most 16 outputs a thread."""
-    cols = KG.nv_decode_cols(m)
+    cols = KG.fp4_decode_cols(m)
     assert cols * (4 if m <= 4 else 8 if m <= 8 else 16) == 32 * 16 and cols % 32 == 0
     for sms in range(1, 133):
-        kc, splits = KG.nv_decode_split(m, n, k, sms)
+        kc, splits = KG.fp4_decode_split(m, n, k, sms, 16)
         assert kc % 128 == 0 and 128 <= kc <= 2048
         assert (splits - 1) * kc < k <= splits * kc
         assert splits * m * n * 8 <= n * k * 0.5625 / 4
@@ -322,7 +322,7 @@ def test_nv_decode_split_ragged_k(k, m):
     """Small and ragged K (K % 16 == 0): one slice covers K below 128, and
     every slice count covers K once."""
     for sms in (1, 8, 132):
-        kc, splits = KG.nv_decode_split(m, 33, k, sms)
+        kc, splits = KG.fp4_decode_split(m, 33, k, sms, 16)
         assert kc % 128 == 0 and kc <= 2048 and (splits - 1) * kc < k <= splits * kc
         assert splits == 1 or k > 128
 
@@ -355,7 +355,7 @@ def _decode_kernel_order(aqt, bqt, ast, bst, alpha, sms, out_dtype=torch.bfloat1
     warps in order, and the last block the slices in order; one rounding
     to fp32, times alpha in fp32."""
     k, m, n = aqt.shape[0] * 2, aqt.shape[1], bqt.shape[1]
-    kc, splits = KG.nv_decode_split(m, n, k, sms)
+    kc, splits = KG.fp4_decode_split(m, n, k, sms, 16)
     av = C.e2m1_decode_f32(E.unpack_codes(aqt.T)).double().reshape(m, k // 16, 16)
     bv = C.e2m1_decode_f32(E.unpack_codes(bqt.T)).double().reshape(n, k // 16, 16)
     p = torch.einsum("mgi,ngi->mng", av, bv).float()          # exact group sums
@@ -384,7 +384,7 @@ def test_decode_kernel_order_equals_the_plain_version(m, sms):
     a bit."""
     n, k = 96, 4096
     _, (aqt, bqt, ast, bst) = _nv_kmajor_operands(m, n, k, seed=60 + m)
-    assert KG.nv_decode_split(m, n, k, sms)[1] > 1
+    assert KG.fp4_decode_split(m, n, k, sms, 16)[1] > 1
     for od in (torch.bfloat16, torch.float32):
         want = E.matmul_nvf4_bf16_kmajor(aqt, bqt, ast, bst, torch.tensor([0.37]), od)
         got = _decode_kernel_order(aqt, bqt, ast, bst, 0.37, sms, od)

@@ -1,7 +1,7 @@
 """Shared utilities of the PyTorch-port tests: data moves between the two
 packages as numpy arrays, bf16 through its bit pattern.  ``ml_dtypes`` is
 imported only where a bf16 array is made: the card's tests import this
-module for ``nan_equal`` and ``nv_adversarial`` alone."""
+module for ``nan_equal`` and the operand builders alone."""
 import numpy as np
 import torch
 
@@ -71,4 +71,41 @@ def nv_adversarial(m: int, n: int, k: int, seed: int, special: bool):
     if special:
         ast[nb + 1, 1], bst[nb + 2, 3], bst[groups - 1, n - 1], ast[0, m - 1] = 0x7F, 0xFF, 0x7F, 0xFF
         ast[nb + 3, :], bst[:, 2], bst[nb + 4, 5], ast[:, 4] = 0, 0, 0x80, 0
+    return tuple(torch.from_numpy(t) for t in (at, bt, ast, bst))
+
+
+def mx_adversarial(m: int, n: int, k: int, seed: int, special: bool):
+    """K-major MXFP4 operands (codes [K/2, M], [K/2, N], scale bytes
+    [K/32, M], [K/32, N], CPU tensors) whose fp64 sums round: the first
+    groups add the largest term (6 * 6 * 32 * 2^40, scale bytes 147, every
+    output alike) until the sum passes 2^55, the last as many subtract it
+    again, and the 16 groups between add terms of random codes and scale
+    bytes 125..128 (2^-4 to 2^2 times p), near the ulp of the running sum
+    (8), so that they round there.  ``special`` plants NaN scale bytes
+    (255).  Needs K >= 512."""
+    rng = np.random.default_rng(seed)
+    groups = k // 32
+    nb = (groups - 16) // 2
+    at = rng.integers(0, 256, (k // 2, m), dtype=np.uint8)
+    bt = rng.integers(0, 256, (k // 2, n), dtype=np.uint8)
+    at[:16 * nb], bt[:16 * nb], bt[16 * (groups - nb):], at[16 * (groups - nb):] = 0x77, 0x77, 0x77, 0xFF
+    ast, bst = (rng.integers(125, 129, (groups, r), dtype=np.uint8) for r in (m, n))
+    for s in (ast, bst):
+        s[:nb], s[groups - nb:] = 147, 147
+    if special:
+        ast[nb + 1, 1], bst[nb + 2, 3], bst[groups - 1, n - 1], ast[0, m - 1] = 255, 255, 255, 255
+    return tuple(torch.from_numpy(t) for t in (at, bt, ast, bst))
+
+
+def mx_spread(m: int, n: int, k: int, seed: int, a_bytes=(104, 131), b_bytes=(126, 130)):
+    """K-major MXFP4 operands (as ``mx_adversarial``) of random codes whose
+    group scales spread over ~29 binades (a's bytes in [104, 131), b's in
+    [126, 130)): an fp32 chain over K rounds (24 bits), while the fp64 sum
+    of the exact group terms stays exact up to K = 12288 (29 binades + 13
+    bits of a group sum + 9 bits of 384 groups < 53)."""
+    rng = np.random.default_rng(seed)
+    at = rng.integers(0, 256, (k // 2, m), dtype=np.uint8)
+    bt = rng.integers(0, 256, (k // 2, n), dtype=np.uint8)
+    ast = rng.integers(*a_bytes, (k // 32, m), dtype=np.uint8)
+    bst = rng.integers(*b_bytes, (k // 32, n), dtype=np.uint8)
     return tuple(torch.from_numpy(t) for t in (at, bt, ast, bst))

@@ -15,9 +15,10 @@ Phases, in order; any failure exits non-zero before the result lines:
      and a QAT step; K2 and K6 summed over an int8 decode step and a
      prefill, beside the time of one launch on this card; K4 and K7
      (bitwise, bf16 and fp32, at M = 4 through their split-K decode
-     kernel, at M = 512 through K4's tile and K7's prefill kernel, and K7
-     at M = 64) summed over an fp4 decode step and a prefill, beside the
-     step's weight byte bound, launch floor and (K7's prefill) fp64 fold
+     kernel, at M = 512 through their prefill kernel, one template of
+     both formats, and K7 at M = 64; K4 also in the tn and kmajor_codes
+     layouts) summed over an fp4 decode step and a prefill, beside the
+     step's weight byte bound, launch floor and (prefill) fp64 fold
      floor; the QAT kernels
      (K8-K11, K3 in the int8 backward's orders, and the training
      forward's K1 with the clip mask and K3) at the training shapes of
@@ -31,7 +32,7 @@ Phases, in order; any failure exits non-zero before the result lines:
      weights stored as int8 (the default), checked against a
      step-by-step replay, then the same requests with the weights
      stored as packed fp4 (K4's decode kernel at every decode step, its
-     tile kernel at the prefill), timed and checked against a replay
+     prefill kernel at the prefill), timed and checked against a replay
   5. NVFP4 serving, the same requests: int8-stored weights with the
      exact per-call activation scale, then with calibrated static
      scales, then fp4-stored weights (K7's decode kernel at every decode
@@ -97,8 +98,8 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
                     "qutlass_tpu/kernels/gemm.py:193"),
     "gemm_fp4_mx_decode": ("qutlass_tpu_torch/csrc/gemm_fp4_decode.cuh",
                            "qutlass_tpu/kernels/gemm.py:193"),
-    "gemm_fp4_mx_tile": ("qutlass_tpu_torch/csrc/gemm_fp4_mx.cu",
-                         "qutlass_tpu/kernels/gemm.py:193"),
+    "gemm_fp4_mx_prefill": ("qutlass_tpu_torch/csrc/gemm_fp4_prefill.cuh",
+                            "qutlass_tpu/kernels/gemm.py:193"),
     "quantize_nv": ("qutlass_tpu_torch/csrc/quantize_nv.cu",
                     "qutlass_tpu/kernels/quantize.py:248"),
     "quantize_nv_int8": ("qutlass_tpu_torch/csrc/quantize_nv_int8.cu",
@@ -107,7 +108,7 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
                     "qutlass_tpu/kernels/gemm.py:193"),
     "gemm_fp4_nv_decode": ("qutlass_tpu_torch/csrc/gemm_fp4_decode.cuh",
                            "qutlass_tpu/kernels/gemm.py:193"),
-    "gemm_fp4_nv_prefill": ("qutlass_tpu_torch/csrc/gemm_fp4_nv.cu",
+    "gemm_fp4_nv_prefill": ("qutlass_tpu_torch/csrc/gemm_fp4_prefill.cuh",
                             "qutlass_tpu/kernels/gemm.py:193"),
     "square_double_scaled": ("qutlass_tpu_torch/csrc/square_double.cu",
                              "qutlass_tpu/kernels/backward.py:324"),
@@ -132,8 +133,9 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
 }
 # the H100 SXM's published peaks: HBM3 rate, dense bf16, fp8 and int8 tensor
 # cores, and fp32 and fp64 on the CUDA cores (printed beside a bound, never
-# one: the least time of a bf16 rotation is the tensor cores'; K7's prefill
-# kernel folds its exact group sums with fp64 FMAs, a floor of its design).
+# one: the least time of a bf16 rotation is the tensor cores'; K4's and K7's
+# prefill kernel folds its exact group sums with fp64 FMAs, a floor of its
+# design).
 # e2m1 values (doubled) are exact in int8 and fp8, so a GEMM of fp4 operands
 # is bounded at the int8 peak
 HBM_BYTES_PER_S = 3.35e12
@@ -349,10 +351,11 @@ def quantizer_sums(torch, qtimes: dict, layers: int) -> None:
 LAYER_KN = {(4096, 4096): 2, (4096, 1024): 2, (4096, 12288): 2, (12288, 4096): 1}
 
 
-def fold_floor_ms(m: int, n: int, k: int) -> float:
-    """The least time of K7's prefill kernel's fp64 fold: two fp64 FMAs
-    (four operations) an output and 16-group, at the fp64 peak."""
-    return 4 * m * n * (k // 16) / PEAK_OPS_PER_S["fp64"] * 1e3
+def fold_floor_ms(m: int, n: int, k: int, group: int = 16) -> float:
+    """The least time of the fp4 prefill kernel's fp64 fold: two fp64 FMAs
+    (four operations) an output and group (16: K7, 32: K4), at the fp64
+    peak."""
+    return 4 * m * n * (k // group) / PEAK_OPS_PER_S["fp64"] * 1e3
 
 
 def fp4_sums(torch, ktimes: dict, layers: int) -> None:
@@ -360,8 +363,8 @@ def fp4_sums(torch, ktimes: dict, layers: int) -> None:
     prefill from the phase 2 times in ``ktimes`` ({(name, M, K, N): ms}),
     beside the byte bound of the step's weights (1/2 + 1/group byte an
     element: 0.53125 MX, 0.5625 NV), the launch floor of its 7 x
-    ``layers`` calls and, at K7's prefill, the floor of its prefill
-    kernel's fp64 fold."""
+    ``layers`` calls and, at a prefill, the floor of the prefill kernel's
+    fp64 fold (a 32-group for K4, a 16-group for K7)."""
     floor = timed_ms(torch, lambda: torch.cuda._sleep(0), 50)
     calls = layers * sum(LAYER_KN.values())
     for name, kern, fmt, group in (("gemm_fp4_mx", "K4", "MX", 32),
@@ -373,8 +376,9 @@ def fp4_sums(torch, ktimes: dict, layers: int) -> None:
             tot = layers * sum(c * ktimes[name, m, k, n] for (k, n), c in LAYER_KN.items())
             per = ", ".join(f"(K, N)=({k}, {n}) {ktimes[name, m, k, n]:.4f} ms"
                             for k, n in LAYER_KN)
-            fold = "" if m <= 16 or name != "gemm_fp4_nv" else ", fp64 fold floor " + \
-                f"{layers * sum(c * fold_floor_ms(m, n, k) for (k, n), c in LAYER_KN.items()):.3f} ms"
+            floor_ms = layers * sum(c * fold_floor_ms(m, n, k, group)
+                                    for (k, n), c in LAYER_KN.items())
+            fold = "" if m <= 16 else f", fp64 fold floor {floor_ms:.3f} ms"
             print(f"phase 2 {kern} in {what}, 7 linears x {layers} layers ({calls} calls): "
                   f"{tot:.3f} ms; weight byte bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} "
                   f"ms, launch floor {calls} x {floor:.4f} = {calls * floor:.3f} ms{fold}; per "
@@ -456,10 +460,10 @@ def compare_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None:
                       lambda od: I8.matmul_mxf4_bf16_int8_kmajor(ai, wi, sa, sb, 1.0, od),
                       f"kmajor at {shape}")
             # K4: the fp4-weight GEMM, its decode kernel at M <= 16 and its
-            # tile kernel above: bitwise vs plain in bf16 and fp32, and vs K3
-            # at deficit <= 3
+            # prefill kernel above: bitwise vs plain in bf16 and fp32, and vs
+            # K3 at deficit <= 3
             xqt, xst = Q.quantize_mx(x, h, rot_size=32, layout="kmajor")
-            kernel = "gemm_fp4_mx_decode" if m <= G.DECODE_M else "gemm_fp4_mx_tile"
+            kernel = "gemm_fp4_mx_decode" if m <= G.DECODE_M else "gemm_fp4_mx_prefill"
             before = dispatch.launch_counts[kernel]
             y4 = G.gemm_fp4_mx(xqt, wqt, xst, wst, 1.0, layout="kmajor")
             y32 = G.gemm_fp4_mx(xqt, wqt, xst, wst, 1.0, layout="kmajor",
@@ -484,20 +488,39 @@ def compare_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None:
             extra = f" {kernel}, bf16 and fp32 bitwise, vs_K3={same}"
             if m <= G.DECODE_M:
                 extra += f", splits {G.fp4_decode_split(m, n, k, sms, 32)}"
+            else:
+                extra += f" fp64_fold_floor_ms={fold_floor_ms(m, n, k, 32):.6f}"
             record("gemm_fp4_mx", shape, 0.0, ms, plain, extra, bnd)
             ktimes["gemm_fp4_mx", m, k, n] = ms
             if (m, k, n) in (TIMED, (SHAPES_M[0], *TIMED[1:])):   # the kernel's row of the JSON line
                 results[kernel].update(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1])
-    # the reference-parity drive: row-major quantize + matmul_mxf4_bf16_tn
-    m, k, n = 512, 4096, 4096
-    xq, xs = check_quantize(randn(m, k), "rowmajor", (m, k, None), False)
-    wq, ws = Q.quantize_mx(randn(n, k, scale=k ** -0.5), h, rot_size=32)
-    before = dispatch.launch_counts["gemm_fp4_mx_tile"]
+    # the reference-parity drive: row-major quantize + matmul_mxf4_bf16_tn,
+    # then the K-major layout with unpacked activation codes, both through
+    # the prefill kernel, bitwise and timed at the prefill's gate / up shape
+    m, k, n = TIMED
+    x, w = randn(m, k), randn(n, k, scale=k ** -0.5)
+    xq, xs = check_quantize(x, "rowmajor", (m, k, None), False)
+    wq, ws = Q.quantize_mx(w, h, rot_size=32)
+    before = dispatch.launch_counts["gemm_fp4_mx_prefill"]
     y = qt.matmul_mxf4_bf16_tn(xq, wq, qt.to_blocked(xs), qt.to_blocked(ws), 1.0)
-    want = G.gemm_fp4_mx_plain(xq, wq, xs[:m, :k // 32], ws[:n, :k // 32], 1.0, layout="tn")
-    require(torch.equal(y, want) and dispatch.launch_counts["gemm_fp4_mx_tile"] == before + 1,
-            "K4 tn layout differs from its plain version or did not run the tile kernel")
-    record("gemm_fp4_mx", (m, k, n), 0.0, extra=" layout=tn gemm_fp4_mx_tile bitwise")
+    tn_ops = (xq, wq, xs[:m, :k // 32], ws[:n, :k // 32])
+    want = G.gemm_fp4_mx_plain(*tn_ops, 1.0, layout="tn")
+    require(torch.equal(y, want) and dispatch.launch_counts["gemm_fp4_mx_prefill"] == before + 1,
+            "K4 tn layout differs from its plain version or did not run the prefill kernel")
+    ms = timed_ms(torch, lambda: G.gemm_fp4_mx(*tn_ops, 1.0, layout="tn"))
+    print(f"phase 2 gemm_fp4_mx M,K,N={(m, k, n)} layout=tn gemm_fp4_mx_prefill bitwise "
+          f"ms={ms:.4f}")
+    xc, xcs = Q.quantize_mx(x, h, rot_size=32, layout="kmajor_codes")
+    wqt, wst = Q.quantize_mx(w, h, rot_size=32, layout="kmajor")
+    before = dispatch.launch_counts["gemm_fp4_mx_prefill"]
+    y = G.gemm_fp4_mx(xc, wqt, xcs, wst, 1.0, layout="kmajor_codes")
+    want = G.gemm_fp4_mx_plain(xc, wqt, xcs, wst, 1.0, layout="kmajor_codes")
+    require(torch.equal(y, want) and dispatch.launch_counts["gemm_fp4_mx_prefill"] == before + 1,
+            "K4 kmajor_codes layout differs from its plain version or did not run the prefill "
+            "kernel")
+    ms = timed_ms(torch, lambda: G.gemm_fp4_mx(xc, wqt, xcs, wst, 1.0, layout="kmajor_codes"))
+    print(f"phase 2 gemm_fp4_mx M,K,N={(m, k, n)} layout=kmajor_codes gemm_fp4_mx_prefill "
+          f"bitwise ms={ms:.4f}")
 
 
 def _ulp_diff(torch, a, b):
@@ -1005,7 +1028,7 @@ def _compose_nv(G, Q, x, h, gsx, wqt, wst, alpha, kw):
 # ---------------------------------------------------------------------------
 
 MX_PATH = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1", "gemm_fp4_mx",
-           "gemm_fp4_mx_decode", "gemm_fp4_mx_tile")
+           "gemm_fp4_mx_decode", "gemm_fp4_mx_prefill")
 NV_PATH = ("quantize_nv", "quantize_nv_int8", "gemm_int8_rank1", "gemm_fp4_nv",
            "gemm_fp4_nv_decode", "gemm_fp4_nv_prefill")
 
@@ -1131,7 +1154,7 @@ def serve(torch, layers: int, steps: int, prof: bool = False) -> dict:
     logits, toks, prefill_ms, ms_per_token, generate_ms = run_and_replay(
         torch, M, cfg, w_int8, prompt, h, lengths, max_len, steps, "phase 4 MX int8")
     # the same requests with fp4-stored weights (kernels K1 + K4: its decode
-    # kernel at every decode step, its tile kernel at the prefill)
+    # kernel at every decode step, its prefill kernel at the prefill)
     logits4, toks4, prefill4, ms_per_token4, generate4 = run_and_replay(
         torch, M, cfg, w_fp4, prompt, h, lengths, max_len, steps, "phase 4 MX fp4")
     torch.cuda.synchronize()
@@ -1552,7 +1575,7 @@ def fused_linear_phase(torch, trained) -> dict:
                 {"fused_linear_mx": 2, "quantize_mx": 2, "gemm_fp4_mx": 0},
                 {"fused_linear_mx": 0, "quantize_mx": 4, "gemm_fp4_mx": 2,
                  "gemm_fp4_mx_decode": 2 if m <= 16 else 0,
-                 "gemm_fp4_mx_tile": 0 if m <= 16 else 2},
+                 "gemm_fp4_mx_prefill": 0 if m <= 16 else 2},
                 iters=3 if m > 64 else 10)
             ref = F.silu((x @ w1.T).float()).to(torch.bfloat16) @ w2.T
             cos = cosine(y, ref)
@@ -1571,7 +1594,7 @@ def fused_linear_phase(torch, trained) -> dict:
         y, ms_c, ms_f = both_routes(
             "abs-max QuartetLinear M=64", lambda: lin(x),
             {"fused_linear_mx": 1, "quantize_mx": 1, "gemm_fp4_mx": 0},
-            {"fused_linear_mx": 0, "quantize_mx": 2, "gemm_fp4_mx": 1, "gemm_fp4_mx_tile": 1})
+            {"fused_linear_mx": 0, "quantize_mx": 2, "gemm_fp4_mx": 1, "gemm_fp4_mx_prefill": 1})
         cos = cosine(y, x @ w1.T)
         require(cos >= 0.95, f"phase 8 abs-max QuartetLinear: cosine {cos} to the bf16 linear")
         print(f"phase 8 MX abs-max QuartetLinear eval {QAT_D}->{QAT_H} M=64 (alpha 1/9): "

@@ -12,7 +12,8 @@
 //
 // What bounds it on the H100: at decode the weight bytes (0.53 or 0.56
 // byte a weight element); at prefill the CUDA cores' fp32 rate, since
-// this first version accumulates on them as K4's tile kernel does.
+// this first version accumulates on them (the fp4 tile of
+// gemm_fp4_tile.cuh), where K4 and K7 sum on the tensor cores.
 //
 // Exactness by construction: each output is bitwise the composition K1 +
 // K4 (K5 + K7).  The activation of every 128-column slab is quantized with
@@ -21,11 +22,11 @@
 // row as there, and decoded as K4 (e2m1_value and e8m0_decode) or K7
 // (e2m1_value and e4m3_decode) decode the quantizer's bytes.  The
 // weight's decode, the sums and the epilogue are the fp4 tile's
-// (gemm_fp4_tile.cuh), K4's own code: per group the exact fp32 sum of
-// its e2m1 products, times both scales (in fp64 for MX's powers of two,
-// in fp32 for NV's e4m3 values: exact either way), added into fp64 in
-// ascending k, rounded once, then * alpha.  K7's kernels add the same
-// exact NV terms.  alpha and the NV activation global scale are read from
+// (gemm_fp4_tile.cuh): per group the exact fp32 sum of its e2m1
+// products, times both scales (in fp64 for MX's powers of two, in fp32
+// for NV's e4m3 values: exact either way), added into fp64 in ascending
+// k, rounded once, then * alpha.  K4's and K7's prefill kernel
+// (gemm_fp4_prefill.cuh) adds the same exact terms in the same order.  alpha and the NV activation global scale are read from
 // device memory.
 //
 // Design: 64x64 output tiles, 256 threads of 4x4 outputs each (K4's

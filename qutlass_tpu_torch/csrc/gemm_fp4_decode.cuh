@@ -114,7 +114,7 @@ __device__ __forceinline__ uint32_t m2x4(uint32_t x) {
 // high) of the thread's C columns, w[G/2] their scale bytes; act_g the
 // group's m2 of row m at act_g + m * kc (G bytes, k ascending), sc_g its
 // scale pair at sc_g[m * gpr], tab the scale bytes' values.  s, the int
-// sum of G m2 products, is 4 p with p the tile kernel's exact group sum;
+// sum of G m2 products, is 4 p with p the fp4 tile's exact group sum;
 // MAGIC + s is formed from bits, and fma(MAGIC + s, sa / 4, -MAGIC sa / 4)
 // = p sa exactly (one rounding of an exact value), so the term added,
 // fma(p sa, sb, acc), is acc + the exact term p sa sb, rounded once

@@ -9,15 +9,16 @@
 // _kmajor and _kmajor_codes (:213-251): the fp4-weight fallback of the
 // quantized linear and the reference-parity GEMM.
 //
-// Exactness.  A group's p (multiples of 1/4 up to 1152) is exact in fp32
-// and in int32 (as s = 4 p), and the term p sa sb is exact in fp64 for
-// every scale byte (fp32 would overflow near byte 254 and flush near byte
-// 0); the terms are added into one fp64 sum an output, rounded once to
-// fp32, times alpha.  While a row pair's group terms span fewer than ~40
-// binades the fp64 sums are exact, the order of the additions moves no
-// bit, and the result is bitwise the plain version's (the fp64 sum of the
-// exact products, rounded once) and so the JAX package's.  Beyond that
-// regime the tile kernel adds in ascending k, as K16 does.  Where an
+// Exactness.  A group's p (multiples of 1/4 up to 1152) is exact in int32
+// as s = 4 p, and the term p sa sb is exact in fp64 for every scale byte
+// (fp32 would overflow near byte 254 and flush near byte 0); the terms are
+// added into one fp64 sum an output, rounded once to fp32, times alpha.
+// While a row pair's group terms span fewer than ~40 binades the fp64 sums
+// are exact, the order of the additions moves no bit, and the result is
+// bitwise the plain version's (the fp64 sum of the exact products, rounded
+// once) and so the JAX package's.  Beyond that regime the prefill kernel
+// adds in ascending k, as K16 does (gemm_fp4_tile.cuh's
+// mx_accumulate_group), so K16 equals K1 + K4 there too.  Where an
 // operand's scale byte is 253 or 254 the plain version's bf16 dequant
 // saturates to inf while the fold keeps the exact term; there, and where
 // the fp64 sums round, the kernels are held to
@@ -33,64 +34,35 @@
 // 32-group's s from eight __dp4a, the fp64 partials added in split order
 // by the last block of a column tile, in one launch with no host sync.
 //
-// Tile (gemm_fp4_mx_kernel): every other call (tn and kmajor_codes at any
-// M, kmajor above 16 rows).  64x64 output tiles, 256 threads of 4x4
-// outputs each (the tile of gemm_fp4_tile.cuh, shared with K16).  Every
-// K step of 32 (one scale group) decodes a 32x64 slab of each operand's
-// e2m1 values and its scale row into shared memory as fp32; each output
-// takes the group's p by 32 fmaf and folds p sa sb into fp64.  Operands
-// and scales are read through strides, so the row-major, K-major and
-// unpacked-codes layouts share the kernel.  It sums on the CUDA cores.
+// Prefill (gemm_fp4_prefill<dec::Mx>, gemm_fp4_prefill.cuh, shared with
+// K7): every other call (tn at any M, kmajor above 16 rows, kmajor_codes).
+// Bound by the fp64 fold, two DFMA an output and 32-group (33.5 TFLOP/s on
+// the H100's CUDA cores: 0.096 ms at (M, K, N) = (512, 4096, 12288)), not
+// by the int8 products (0.026 ms).  Blocks of 64 x 64 (or 64 x 32)
+// outputs stage slabs of 64 k (two 32-groups) of both operands in shared
+// memory as int8 m2; each 32-group of a 16 x 8 output tile is one
+// mma.sync.m16n8k32 s8 x s8 -> s32 from a zero accumulator, whose int32
+// results are the group's s, folded as
+// fma(fma(MAGIC + s, sa / 4, -MAGIC sa / 4), sb, acc) in ascending k: acc
+// + p sa sb rounded once, bitwise the fp4 tile's fold.  Packed operands of
+// contiguous rows take 4-byte loads, other strides byte loads; unpacked
+// activation codes (kmajor_codes) are read a byte a k and packed as they
+// arrive.  No workspace, no counters: graph-safe.
 //
 // Both kernels read alpha from device memory, or take a number by value
 // (alpha null): no host sync and no launch for it.
 #include "gemm_fp4_decode.cuh"
-#include "gemm_fp4_tile.cuh"
-
-namespace {
-
-using namespace qt::tile;
-constexpr int BK = 32;  // one scale group
-
-template <typename Out>
-__global__ void __launch_bounds__(THREADS)
-gemm_fp4_mx_kernel(const uint8_t* __restrict__ a, long long a_m, long long a_k, int a_packed,
-                   const uint8_t* __restrict__ as, long long as_m, long long as_g,
-                   const uint8_t* __restrict__ b, long long b_n, long long b_k, int b_packed,
-                   const uint8_t* __restrict__ bs, long long bs_n, long long bs_g,
-                   const float* __restrict__ alpha_ptr, float alpha_val, Out* __restrict__ c,
-                   int M, int N, int K) {
-  __shared__ float As[BK][PAD];
-  __shared__ float Bs[BK][PAD];
-  __shared__ float Sa[BK / 32][BM];
-  __shared__ float Sb[BK / 32][BN];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  double acc[4][4];
-  zero(acc);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    decode_mx<BK>(As, Sa, a, a_m, a_k, a_packed, as, as_m, as_g, m0, M, k0, K, tid);
-    decode_mx<BK>(Bs, Sb, b, b_n, b_k, b_packed, bs, bs_n, bs_g, n0, N, k0, K, tid);
-    __syncthreads();
-    mx_accumulate_group(acc, As, Bs, Sa, Sb, 0, tx, ty);
-    __syncthreads();
-  }
-  store(c, acc, alpha_ptr != nullptr ? *alpha_ptr : alpha_val, m0, n0, M, N, tx, ty);
-}
-
-}  // namespace
+#include "gemm_fp4_prefill.cuh"
 
 // a'[m, k] = a[m * a_m + (k / 2) * a_k] (packed, element 2i in the low
 // nibble) or a[m * a_m + k * a_k] (codes, a_packed 0), a's scales
 // as[m * as_m + g * as_g]; likewise b' [N, K] and bs; alpha fp32 on the
 // device, or alpha_val where alpha is null; c [M, N] bf16 or (out_f32)
-// fp32; K % 32 == 0.  With part == nullptr the tile kernel runs, on any
-// strides.  With part, the decode kernel (dec::run): packed operands, M <=
-// 16, b and bs K-major (b_n == bs_n == 1), kc a multiple of 256 and at
-// most 2048, part and counters as dec::run states.  What a kernel does not
-// take returns cudaErrorInvalidValue.
+// fp32; K % 32 == 0; b packed.  With part == nullptr the prefill kernel
+// runs, on any strides.  With part, the decode kernel (dec::run): packed
+// operands, M <= 16, b and bs K-major (b_n == bs_n == 1), kc a multiple
+// of 256 and at most 2048, part and counters as dec::run states.  What a
+// kernel does not take returns cudaErrorInvalidValue.
 extern "C" int qt_gemm_fp4_mx(const void* a, long long a_m, long long a_k, int a_packed,
                               const void* as, long long as_m, long long as_g, const void* b,
                               long long b_n, long long b_k, int b_packed, const void* bs,
@@ -107,15 +79,15 @@ extern "C" int qt_gemm_fp4_mx(const void* a, long long a_m, long long a_k, int a
     return dec::run<dec::Mx>(ap, a_m, a_k, asp, as_m, as_g, bp, b_k, bsp, bs_g, al, alpha_val, c,
                              out_f32, M, N, K, kc, (double*)part, (int*)counters, st);
   }
-  if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (!b_packed) return (int)cudaErrorInvalidValue;
   if (out_f32)
-    gemm_fp4_mx_kernel<float><<<grid, THREADS, 0, st>>>(ap, a_m, a_k, a_packed, asp, as_m, as_g, bp,
-                                                        b_n, b_k, b_packed, bsp, bs_n, bs_g, al,
-                                                        alpha_val, (float*)c, M, N, K);
-  else
-    gemm_fp4_mx_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        ap, a_m, a_k, a_packed, asp, as_m, as_g, bp, b_n, b_k, b_packed, bsp, bs_n, bs_g, al,
-        alpha_val, (__nv_bfloat16*)c, M, N, K);
-  return (int)cudaGetLastError();
+    return a_packed ? pre::run<dec::Mx, false>(ap, a_m, a_k, asp, as_m, as_g, bp, b_n, b_k, bsp,
+                                               bs_n, bs_g, al, alpha_val, (float*)c, M, N, K, st)
+                    : pre::run<dec::Mx, true>(ap, a_m, a_k, asp, as_m, as_g, bp, b_n, b_k, bsp,
+                                              bs_n, bs_g, al, alpha_val, (float*)c, M, N, K, st);
+  __nv_bfloat16* cb = (__nv_bfloat16*)c;
+  return a_packed ? pre::run<dec::Mx, false>(ap, a_m, a_k, asp, as_m, as_g, bp, b_n, b_k, bsp, bs_n,
+                                             bs_g, al, alpha_val, cb, M, N, K, st)
+                  : pre::run<dec::Mx, true>(ap, a_m, a_k, asp, as_m, as_g, bp, b_n, b_k, bsp, bs_n,
+                                            bs_g, al, alpha_val, cb, M, N, K, st);
 }

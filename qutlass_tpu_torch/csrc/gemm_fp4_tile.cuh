@@ -1,11 +1,9 @@
-// The 64x64 output tile of the fp4 GEMMs, shared by K4's tile kernel
-// (gemm_fp4_mx.cu) and the single-kernel linears K16 / K17
+// The 64x64 output tile of the single-kernel linears K16 / K17
 // (fused_linear.cu): the slab decoders, the accumulation steps and the
-// epilogue (whose `out` K7's kernels use too).  Both formats fold exact
-// group terms into fp64 in ascending k: K16 equals K1 + K4 because K16
-// runs K4's step on the same decoded values, and K17 equals K5 + K7
-// because K7's kernels add the same exact terms (its prefill kernel in
-// the same order).
+// epilogue (whose `out` K4's and K7's kernels use too).  Both formats
+// fold exact group terms into fp64 in ascending k: K16 equals K1 + K4 and
+// K17 equals K5 + K7 because K4's and K7's kernels add the same exact
+// terms (their prefill kernel, gemm_fp4_prefill.cuh, in the same order).
 //
 // 256 threads hold 4x4 outputs each: thread (tx, ty) = (tid % 16, tid /
 // 16) owns rows ty + 16 i and columns tx + 16 j.  A slab is BK columns of
@@ -95,9 +93,9 @@ __device__ __forceinline__ void zero(Acc (&acc)[4][4]) {
 // products (multiples of 1/4 up to 1152: exact), times both scales in
 // fp64 (powers of two from 2^-127 to 2^127, which fp32 would flush or
 // overflow: exact), added into fp64, which stays exact while a row
-// pair's group terms span fewer than ~40 binades.  K4 and K16 fold their
-// terms in ascending k; the decode kernel (gemm_fp4_decode.cuh) adds the
-// same exact terms in another order
+// pair's group terms span fewer than ~40 binades.  K16 and K4's prefill
+// kernel fold these terms in ascending k; the decode kernel
+// (gemm_fp4_decode.cuh) adds them in another order
 __device__ __forceinline__ void mx_accumulate_group(double (&acc)[4][4], const float (*a)[PAD],
                                                     const float (*b)[PAD], const float (*sa)[BM],
                                                     const float (*sb)[BN], int g, int tx, int ty) {

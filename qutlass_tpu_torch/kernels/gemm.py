@@ -23,12 +23,13 @@ K4 and K7 are two kernels too.  In the ``kmajor`` layout up to
 templated on the format), which splits K over blocks
 (``fp4_decode_split``) and adds exact fp64 partial sums in a workspace
 allocated here, with the same per-stream counters.  Every other call runs
-K4's tile kernel (CUDA cores) or K7's prefill kernel (each 16-group's sum
-on the tensor cores), which fold each output's exact group terms into one
+one prefill kernel (``csrc/gemm_fp4_prefill.cuh``, templated on the
+format: each group's sum on the tensor cores, one int8 ``mma.sync`` a
+16- or 32-group), which folds each output's exact group terms into one
 fp64 chain in ascending k, with no workspace.  A launch counts as
-``gemm_fp4_mx`` and also as ``gemm_fp4_mx_decode`` or ``gemm_fp4_mx_tile``;
-as ``gemm_fp4_nv`` and also as ``gemm_fp4_nv_decode`` or
-``gemm_fp4_nv_prefill``.
+``gemm_fp4_mx`` and also as ``gemm_fp4_mx_decode`` or
+``gemm_fp4_mx_prefill``; as ``gemm_fp4_nv`` and also as
+``gemm_fp4_nv_decode`` or ``gemm_fp4_nv_prefill``.
 """
 from __future__ import annotations
 
@@ -209,7 +210,7 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     """Kernel K4: C[M, N] = out_dtype((dq(a) @ dq(b)^T) * alpha), the exact
     32-group terms folded in fp64 (the plain version's fp64 sum while they
     span fewer than ~40 binades; ``ops.emulation.gemm_fp4_mx_groupfold_plain``
-    states the tile's order).
+    states the prefill kernel's order).
 
     ``layout="tn"``: a/b packed u8 [M, K/2] / [N, K/2], scales [M, K/32]
     / [N, K/32].  ``"kmajor"``: a/b packed [K/2, M] / [K/2, N], scales
@@ -218,7 +219,7 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     1-element tensor (a CUDA one is read on the card: no host sync).
     K % 32 == 0.  ``kmajor`` at M <= ``DECODE_M`` runs the
     decode kernel, which takes a weight and scales of unit stride along
-    N; any other call runs the tile kernel, on any strides.  Anything
+    N; any other call runs the prefill kernel, on any strides.  Anything
     else raises; nothing falls back to the plain version.
     """
     if layout not in _FP4_PLAIN:
@@ -271,7 +272,7 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
         kc, _stream(a))
     _build.check(err, "gemm_fp4_mx")
     dispatch.note_launch("gemm_fp4_mx")
-    dispatch.note_launch("gemm_fp4_mx_decode" if decode else "gemm_fp4_mx_tile")
+    dispatch.note_launch("gemm_fp4_mx_decode" if decode else "gemm_fp4_mx_prefill")
     return c
 
 

@@ -9,10 +9,10 @@ switch that sends CUDA tensors to a plain version.
 ``launch_counts`` maps each kernel's name to the number of times its
 wrapper launched it; only a kernel launch adds to it, so a run can show
 which kernels its main path went through.  ``gemm_fp4_mx`` counts every
-launch of K4, ``gemm_fp4_mx_decode`` and ``gemm_fp4_mx_tile`` those that
-ran its decode or its tile kernel; ``gemm_fp4_nv`` counts every launch of
-K7, ``gemm_fp4_nv_decode`` and ``gemm_fp4_nv_prefill`` those that ran its
-decode or its prefill kernel.
+launch of K4, ``gemm_fp4_mx_decode`` and ``gemm_fp4_mx_prefill`` those
+that ran its decode or its prefill kernel; ``gemm_fp4_nv`` counts every
+launch of K7, ``gemm_fp4_nv_decode`` and ``gemm_fp4_nv_prefill`` those that
+ran its decode or its prefill kernel.
 
 ``fused_linear_single_kernel`` is the JAX package's switch between the
 two bitwise-identical routes of ``fused_linear_mxf4`` / ``_nvf4``.
@@ -24,8 +24,8 @@ import os
 import torch
 
 KERNELS = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1",
-           "gemm_fp4_mx", "gemm_fp4_mx_decode", "gemm_fp4_mx_tile", "quantize_nv", "quantize_nv_int8", "gemm_fp4_nv", "gemm_fp4_nv_decode",
-           "gemm_fp4_nv_prefill",
+           "gemm_fp4_mx", "gemm_fp4_mx_decode", "gemm_fp4_mx_prefill", "quantize_nv",
+           "quantize_nv_int8", "gemm_fp4_nv", "gemm_fp4_nv_decode", "gemm_fp4_nv_prefill",
            "square_double_scaled", "square_double_mxfp8", "mxfp4_transpose_mxfp8",
            "gemm_fp8_mx", "backward_t_bf16", "backward_qt_bf16", "mxfp4_transpose_scaled",
            "mxfp4_transpose_scaled_kmajor", "fused_linear_mx", "fused_linear_nv")

@@ -226,8 +226,9 @@ def gemm_fp4_mx_groupfold_plain(a, b, a_sf, b_sf, alpha, *, layout: str,
     terms span fewer than ~40 binades and no scale byte is 253 or 254: at
     those bytes the plain versions' bf16 dequant saturates to inf
     (``codecs.e2m1_decode_scaled_bf16``) while the fold keeps the exact
-    term.  Beyond that it is the tile kernel's order, which the plain
-    versions do not fix.  Used by the tests, not by the main path."""
+    term.  Beyond that it is the order of K4's prefill kernel and K16,
+    which the plain versions do not fix.  Used by the tests, not by the
+    main path."""
     if layout in ("kmajor", "kmajor_codes"):
         a, b, a_sf, b_sf = a.T, b.T, a_sf.T, b_sf.T
     elif layout != "tn":

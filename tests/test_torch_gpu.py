@@ -19,11 +19,11 @@ quartet_linear step on the card within cosine 0.9999 of the CPU step
 K17 bitwise against the composition on the card (K1 + K4, K5 + K7) and
 against their plain versions in every row whose quantized activation
 the plain quantizer gives bit for bit; K4's split-K decode kernel (M <=
-16, K-major) and its tile kernel bitwise against the plain version where
+16, K-major) and its prefill kernel bitwise against the plain version where
 the fp64 sums of exact group terms are exact, and against
-``gemm_fp4_mx_groupfold_plain`` (the tile's order, which K16 shares)
-where they round or where the plain version's bf16 dequant saturates
-(scale bytes 253-254), NaN positions aside; K7's split-K decode kernel (M <=
+``gemm_fp4_mx_groupfold_plain`` (the prefill kernel's order, which K16
+shares) where they round or where the plain version's bf16 dequant
+saturates (scale bytes 253-254), NaN positions aside; K7's split-K decode kernel (M <=
 16) bitwise against its plain version (its fp64 sums of exact group
 terms are exact for the scale bytes it is given, so the split order
 moves no bit), NaN positions aside where a NaN scale byte is given;
@@ -290,8 +290,8 @@ def test_gemm_int8_rank1_refuses_what_it_cannot_take(dev):
 def test_k2_k3_equal_k4_at_deficit_3(dev, m):
     """The main path's kernels K2 (activation) and K3 equal the fp4 GEMM K4
     on the same MXFP4 values in every row whose deficit is <= 3, through
-    K3's and K4's decode kernels (M = 4) and K3's prefill and K4's tile
-    kernel (M = 64)."""
+    K3's and K4's decode kernels (M = 4) and their prefill kernels (M =
+    64)."""
     h = qt.hadamard_matrix(32, device=dev)
     x, w = _x(dev, m, 4096, seed=6), _x(dev, 1024, 4096, seed=7, scale=4096 ** -0.5)
     ai, sa, sbytes = Q.quantize_mx_int8(x, h, rot_size=32)
@@ -299,8 +299,8 @@ def test_k2_k3_equal_k4_at_deficit_3(dev, m):
     wqt, wst = Q.quantize_mx(w, h, rot_size=32, layout="kmajor")
     wi, sb, dw = I8.prepare_weight_int8(wqt, wst)
     y3 = I8.matmul_mxf4_bf16_int8_kmajor(ai, wi, sa, sb, 1.0)
-    y4, dec, tile = _k4(xqt, wqt, xst, wst, 1.0)
-    assert (dec, tile) == ((1, 0) if m <= G.DECODE_M else (0, 1))
+    y4, dec, pre = _k4(xqt, wqt, xst, wst, 1.0)
+    assert (dec, pre) == ((1, 0) if m <= G.DECODE_M else (0, 1))
     se = sbytes.to(torch.int32)
     ai1 = I8.encode_int8(xqt, xst, kmajor=True)[0]      # K1's codes, encoded
     rows = ((se.amax(0) - se).amax(0) <= 3) & (sbytes == xst).all(0) & (ai == ai1).all(0)
@@ -403,7 +403,8 @@ def test_gemm_fp4_nv_kernel(dev, m, n, k):
     assert torch.equal(tn, got)
 
 
-# K4: the split-K decode kernel (kmajor, M <= 16) and the tile kernel
+# K4: the split-K decode kernel (kmajor, M <= 16) and the prefill kernel
+# (gemm_fp4_prefill.cuh, K7's, templated on the format)
 
 def _mx_operands(dev, m, n, k, seed, lo=120, hi=136):
     """Random K-major MXFP4 operands: packed codes (every code) [K/2, M] /
@@ -419,8 +420,8 @@ def _mx_operands(dev, m, n, k, seed, lo=120, hi=136):
 
 
 def _k4(a, b, a_sf, b_sf, alpha, layout="kmajor", out_dtype=torch.bfloat16):
-    """K4 and the launches of its decode and tile kernels."""
-    names = ("gemm_fp4_mx_decode", "gemm_fp4_mx_tile")
+    """K4 and the launches of its decode and prefill kernels."""
+    names = ("gemm_fp4_mx_decode", "gemm_fp4_mx_prefill")
     before = [dispatch.launch_counts[k] for k in names]
     y = G.gemm_fp4_mx(a, b, a_sf, b_sf, alpha, layout=layout, out_dtype=out_dtype)
     return (y, *(dispatch.launch_counts[k] - b0 for k, b0 in zip(names, before)))
@@ -438,32 +439,33 @@ def _tn(ops):
 def test_gemm_fp4_mx_decode_kernel(dev, m, n, k, out_dtype):
     """K4's split-K decode kernel (M <= 16, K-major; every MB bucket)
     bitwise against the group fold and the plain version, alpha on the
-    card, at the decode shapes and at N % 4 != 0 (byte loads); the tile
+    card, at the decode shapes and at N % 4 != 0 (byte loads); the prefill
     kernel (the tn layout) gives the same bits, since the fp64 sums are
     exact."""
     ops = _mx_operands(dev, m, n, k, seed=m + n + k)
     alpha = torch.tensor([0.37], device=dev)
-    got, dec, tile = _k4(*ops, alpha, out_dtype=out_dtype)
+    got, dec, pre = _k4(*ops, alpha, out_dtype=out_dtype)
     fold = E.gemm_fp4_mx_groupfold_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
     want = G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
-    tn, tn_dec, tn_tile = _k4(*_tn(ops), alpha, "tn", out_dtype)
+    tn, tn_dec, tn_pre = _k4(*_tn(ops), alpha, "tn", out_dtype)
     torch.cuda.synchronize()
-    assert (dec, tile, tn_dec, tn_tile) == (1, 0, 0, 1) and got.dtype == out_dtype
+    assert (dec, pre, tn_dec, tn_pre) == (1, 0, 0, 1) and got.dtype == out_dtype
     assert torch.equal(got, fold) and torch.equal(got, want) and torch.equal(tn, got)
 
 
 @pytest.mark.parametrize("m", [4, 16, 64])
 def test_gemm_fp4_mx_kernels_exact_where_an_fp32_chain_rounds(dev, m):
     """Group scales spread over ~29 binades, where the fp32 chain K4 ran
-    before rounds: the decode kernel (M <= 16) or the tile kernel, and the
-    tile kernel in the tn layout, equal the plain version bit for bit."""
+    before rounds: the decode kernel (M <= 16) or the prefill kernel, and
+    the prefill kernel in the tn layout, equal the plain version bit for
+    bit."""
     ops = tuple(t.to(dev) for t in mx_spread(m, 200, 4096, seed=m))
     for od in (torch.bfloat16, torch.float32):
         want = G.gemm_fp4_mx_plain(*ops, 0.37, layout="kmajor", out_dtype=od)
-        got, dec, _ = _k4(*ops, 0.37, out_dtype=od)
-        tn, _, tn_tile = _k4(*_tn(ops), 0.37, "tn", od)
+        got, dec, pre = _k4(*ops, 0.37, out_dtype=od)
+        tn, _, tn_pre = _k4(*_tn(ops), 0.37, "tn", od)
         torch.cuda.synchronize()
-        assert dec == (m <= G.DECODE_M) and tn_tile == 1
+        assert (dec, pre) == ((1, 0) if m <= G.DECODE_M else (0, 1)) and tn_pre == 1
         assert torch.equal(got, want) and torch.equal(tn, want)
 
 
@@ -475,48 +477,178 @@ def test_gemm_fp4_mx_kernels_where_the_bf16_dequant_saturates(dev, m):
     ops = tuple(t.to(dev) for t in mx_spread(m, 72, 1024, seed=8, a_bytes=(240, 255),
                                              b_bytes=(0, 15)))
     fold = E.gemm_fp4_mx_groupfold_plain(*ops, 0.37, layout="kmajor")
-    got, dec, _ = _k4(*ops, 0.37)
-    tn = _k4(*_tn(ops), 0.37, "tn")[0]
+    got, dec, pre = _k4(*ops, 0.37)
+    tn, _, tn_pre = _k4(*_tn(ops), 0.37, "tn")
     plain = G.gemm_fp4_mx_plain(*ops, 0.37, layout="kmajor")
     torch.cuda.synchronize()
-    assert dec == (m <= G.DECODE_M) and bool(torch.isfinite(fold.float()).all())
+    assert (dec, pre) == ((1, 0) if m <= G.DECODE_M else (0, 1)) and tn_pre == 1
+    assert bool(torch.isfinite(fold.float()).all())
     assert torch.equal(got, fold) and torch.equal(tn, fold)
     assert not bool(torch.isfinite(plain.float()).all())
 
 
-@pytest.mark.parametrize("m,n,special,layout", [(4, 40, True, "tn"), (64, 200, False, "kmajor"),
-                                                (64, 200, False, "tn"), (305, 72, True, "kmajor"),
-                                                (305, 72, True, "tn"),
-                                                (512, 1024, True, "kmajor")])
-def test_gemm_fp4_mx_tile_kernel_where_fp64_sums_round(dev, m, n, special, layout):
-    """Where the fp64 sums round no order is bitwise against the fp64
-    product: the tile kernel (tn at any M, kmajor above 16 rows) equals
-    the group fold in ascending k (``gemm_fp4_mx_groupfold_plain``, which
-    K16 runs too) bit for bit, NaN positions included, and the fp64
-    product differs."""
-    ops = tuple(t.to(dev) for t in mx_adversarial(m, n, 4096, seed=m, special=special))
-    alpha = torch.tensor([0.37], device=dev)
-    want = E.gemm_fp4_mx_groupfold_plain(*ops, alpha, layout="kmajor", out_dtype=torch.float32)
-    fp64 = G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor", out_dtype=torch.float32)
-    got, _, tile = _k4(*(_tn(ops) if layout == "tn" else ops), alpha, layout, torch.float32)
+def _mx_layout(ops, layout):
+    """K-major operands -> ``layout``: as they are, row-major (tn), or with
+    the activation as unpacked codes [K, M] (kmajor_codes)."""
+    if layout == "tn":
+        return _tn(ops)
+    if layout == "kmajor_codes":
+        return (E.unpack_codes(ops[0].T).T.contiguous().to(torch.uint8), *ops[1:])
+    return ops
+
+
+@pytest.mark.parametrize("m", [17, 64])
+def test_gemm_fp4_mx_above_16_rows_tn_and_codes_run_the_prefill_kernel(dev, m):
+    """M > 16 in the K-major layout, the row-major (tn) layout at any M and
+    unpacked activation codes at any M run the prefill kernel: no decode
+    launch, bitwise the plain version."""
+    ops = _mx_operands(dev, m, 200, 4096, seed=m)
+    got, dec, pre = _k4(*ops, 0.37)
+    want = G.gemm_fp4_mx_plain(*ops, 0.37, layout="kmajor")
+    four = (ops[0][:, :4].contiguous(), ops[1], ops[2][:, :4].contiguous(), ops[3])
+    tn, tn_dec, tn_pre = _k4(*_tn(four), 0.37, "tn")
+    codes, c_dec, c_pre = _k4(*_mx_layout(four, "kmajor_codes"), 0.37, "kmajor_codes")
     torch.cuda.synchronize()
-    assert tile == 1 and nan_equal(got, want)
-    nan = torch.isnan(want)
-    assert bool(nan.any()) == special and not torch.equal(fp64[~nan], want[~nan])
+    assert (dec, pre, tn_dec, tn_pre, c_dec, c_pre) == (0, 1, 0, 1, 0, 1)
+    assert torch.equal(got, want) and torch.equal(tn, want[:4]) and torch.equal(codes, want[:4])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["kmajor", "tn", "kmajor_codes"])
+@pytest.mark.parametrize("m,k,n", [(17, 4128, 1024), (17, 4128, 4104), (64, 4128, 1024),
+                                   (64, 4128, 4104), (512, 4128, 1024), (512, 4128, 4104),
+                                   (305, 1056, 33), (512, 4096, 12288)])
+def test_gemm_fp4_mx_prefill_kernel(dev, m, k, n, layout, out_dtype):
+    """K4's prefill kernel bitwise against its plain version and the group
+    fold, alpha on the card and as a number: ragged M (vector and byte
+    loads), N and K (K % 64 == 32: the last slab holds one 32-group), the
+    three layouts, bf16 and fp32, on its 64 x 32 tile (grids under two
+    blocks an SM of 64 x 64) and its 64 x 64 tile."""
+    ops = _mx_operands(dev, m, n, k, seed=m + n + k)
+    alpha = torch.tensor([0.37], device=dev)
+    want = G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    fold = E.gemm_fp4_mx_groupfold_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    args = _mx_layout(ops, layout)
+    got, dec, pre = _k4(*args, alpha, layout, out_dtype)
+    by_value, _, pre_v = _k4(*args, 0.37, layout, out_dtype)
+    torch.cuda.synchronize()
+    assert (dec, pre, pre_v) == (0, 1, 1) and got.dtype == out_dtype
+    assert torch.equal(got, want) and torch.equal(got, fold) and torch.equal(by_value, want)
+
+
+def _mx_extreme(m, n, k, seed):
+    """K-major operands on the card with a's scale bytes 240-254 and b's
+    0-14 (the plain version's bf16 dequant saturates at 253-254, the fold
+    stays exact) and NaN bytes (255) planted in a row and a column."""
+    at, bt, ast, bst = (t.clone() for t in mx_spread(m, n, k, seed, a_bytes=(240, 255),
+                                                     b_bytes=(0, 15)))
+    ast[1, 2], bst[k // 32 - 1, n - 1] = 255, 255
+    return at, bt, ast, bst
+
+
+# (M, N, case, layout): kmajor only above 16 rows, where the prefill kernel runs
+MX_ADVERSARIAL = [(4, 40, "round_nan", "tn"), (4, 40, "round_nan", "kmajor_codes")] + [
+    (m, n, case, layout) for m, n, case in ((64, 200, "round"), (305, 72, "round_nan"),
+                                            (512, 1024, "round_nan"), (512, 4104, "round"),
+                                            (17, 72, "extreme"), (64, 4104, "extreme"),
+                                            (512, 1024, "extreme"))
+    for layout in ("kmajor", "tn", "kmajor_codes")]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n,case,layout", MX_ADVERSARIAL)
+def test_gemm_fp4_mx_prefill_kernel_adversarial_bytes(dev, m, n, case, layout, out_dtype):
+    """Where the fp64 sums round (``mx_adversarial``) no order is bitwise
+    against the fp64 product: the prefill kernel (tn and kmajor_codes at
+    any M, kmajor above 16 rows) equals the group fold in ascending k
+    (``gemm_fp4_mx_groupfold_plain``, which K16 runs too) bit for bit, NaN
+    positions included, and the fp64 product differs.  At scale bytes 0,
+    253, 254 and 255 (``extreme``) it equals the fold, which is finite
+    where the plain version's bf16 dequant saturates, NaN aside."""
+    if case == "extreme":
+        ops = tuple(t.to(dev) for t in _mx_extreme(m, n, 1024, seed=m))
+    else:
+        ops = tuple(t.to(dev) for t in mx_adversarial(m, n, 4096, seed=m,
+                                                      special=case == "round_nan"))
+    alpha = torch.tensor([0.37], device=dev)
+    want = E.gemm_fp4_mx_groupfold_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    plain = G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    got, _, pre = _k4(*_mx_layout(ops, layout), alpha, layout, out_dtype)
+    torch.cuda.synchronize()
+    assert pre == 1 and nan_equal(got, want)
+    nan = torch.isnan(want.float())
+    assert bool(nan.any()) == (case != "round")
+    if case == "extreme":
+        assert bool(torch.isfinite(want[~nan].float()).all())
+        assert not bool(torch.isfinite(plain[~nan].float()).all())
+    else:
+        assert not torch.equal(plain[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("device_alpha", [True, False])
+def test_gemm_fp4_mx_prefill_kernel_repeats_and_replays_in_a_cuda_graph(dev, device_alpha):
+    """Repeated launches give the same bits; a launch captured in a CUDA
+    graph and replayed on new inputs (and a new device alpha) equals the
+    plain version: no workspace, no counters, alpha read on the card or
+    passed by value."""
+    ops = list(_mx_operands(dev, 512, 1024, 4096, seed=11))
+    alpha = torch.tensor([0.37], device=dev) if device_alpha else 0.37
+    first = G.gemm_fp4_mx(*ops, alpha, layout="kmajor")
+    for _ in range(3):
+        assert torch.equal(G.gemm_fp4_mx(*ops, alpha, layout="kmajor"), first)
+    torch.cuda.synchronize()
+    assert torch.equal(first, G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor"))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        G.gemm_fp4_mx(*ops, alpha, layout="kmajor")          # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = G.gemm_fp4_mx(*ops, alpha, layout="kmajor")
+    for seed in (12, 13):
+        for t, new in zip(ops, _mx_operands(dev, 512, 1024, 4096, seed=seed)):
+            t.copy_(new)
+        if device_alpha:
+            alpha.fill_(0.25 * seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor"))
+
+
+def test_gemm_fp4_mx_prefill_kernel_refuses_what_it_cannot_take(dev):
+    """Above 16 rows and in the tn and kmajor_codes layouts: K % 32 != 0,
+    operands that disagree on K, empty operands and codes of another type
+    raise and launch nothing; there is no fallback."""
+    at, bt, ast, bst = _mx_operands(dev, 64, 128, 512, seed=5)
+    codes = _mx_layout((at, bt, ast, bst), "kmajor_codes")[0]
+    a48, b48, sa48, sb48 = (torch.zeros(shape, dtype=torch.uint8, device=dev)
+                            for shape in ((24, 64), (24, 40), (1, 64), (1, 40)))   # K = 48
+    e, ec, es = (torch.zeros((r, 0), dtype=torch.uint8, device=dev) for r in (256, 512, 16))
+    dispatch.reset_launch_counts()
+    for args, layout, exc in (((a48, b48, sa48, sb48), "kmajor", ValueError),
+                              ((a48.repeat(2, 1), b48, sa48, sb48), "kmajor_codes", ValueError),
+                              ((codes[:-32], bt, ast, bst), "kmajor_codes", ValueError),
+                              ((at, e, ast, es), "kmajor", ValueError),
+                              ((ec, bt, es, bst), "kmajor_codes", ValueError),
+                              ((codes.to(torch.int8), bt, ast, bst), "kmajor_codes", TypeError)):
+        with pytest.raises(exc):
+            G.gemm_fp4_mx(*args, 1.0, layout=layout)
+    assert dispatch.launch_counts["gemm_fp4_mx"] == 0
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_gemm_fp4_mx_decode_kernel_nan_scales(dev, out_dtype):
     """NaN scale bytes (255) give NaN in their row or column, as in the
-    plain version and the tile kernel, at one slice and at several."""
+    plain version and the prefill kernel, at one slice and at several."""
     for k in (512, 8192):
         at, bt, ast, bst = _mx_operands(dev, 4, 200, k, seed=k)
         ast[3, 1], bst[5, 7], bst[k // 32 - 1, 150] = 255, 255, 255
         got, dec, _ = _k4(at, bt, ast, bst, 0.5, out_dtype=out_dtype)
         want = G.gemm_fp4_mx_plain(at, bt, ast, bst, 0.5, layout="kmajor", out_dtype=out_dtype)
-        tile = _k4(*_tn((at, bt, ast, bst)), 0.5, "tn", out_dtype)[0]
+        tn = _k4(*_tn((at, bt, ast, bst)), 0.5, "tn", out_dtype)[0]
         torch.cuda.synchronize()
-        assert dec == 1 and nan_equal(got, want) and nan_equal(tile, want)
+        assert dec == 1 and nan_equal(got, want) and nan_equal(tn, want)
         nan = torch.isnan(got.float())
         assert bool(nan[1].all()) and bool(nan[:, 7].all()) and bool(nan[:, 150].all())
         assert int(nan.sum()) == 200 + 2 * 4 - 2
@@ -564,7 +696,7 @@ def test_gemm_fp4_mx_decode_kernel_in_cuda_graph(dev, k, n):
 def test_gemm_fp4_mx_refuses_what_it_cannot_take(dev):
     """At M <= 16 in the K-major layout, a weight or weight scales without
     unit stride along N raise; so do K % 32 != 0 and empty operands.
-    Nothing launches and nothing falls back to the tile kernel or the
+    Nothing launches and nothing falls back to the prefill kernel or the
     plain version."""
     at, bt, ast, bst = _mx_operands(dev, 4, 128, 512, seed=4)
     wide = torch.zeros((256, 256), dtype=torch.uint8, device=dev)
@@ -1304,7 +1436,7 @@ def _fl_routes(fmt, method, x, h, wq, al, gs, rot):
 @pytest.mark.parametrize("fmt", ["mx", "nv"])
 def test_fused_linear_kernels(dev, fmt, method, m, n, k, rot):
     """K16 / K17 bitwise against the composition on the card (K4's and K7's
-    decode kernel at M <= 16, K4's tile and K7's prefill kernel above), and against
+    decode kernel at M <= 16, their prefill kernel above), and against
     the plain version in every row whose quantized activation the plain
     quantizer gives bit for bit (K1 / K5 sum the rotation in another
     order than cuBLAS: at most one such row may differ here)."""
@@ -1314,8 +1446,7 @@ def test_fused_linear_kernels(dev, fmt, method, m, n, k, rot):
     torch.cuda.synchronize()
     assert tuple(y.shape) == (m, n) and y.dtype == torch.bfloat16
     assert _same_or_nan(y, comp)
-    gemm = f"gemm_fp4_{fmt}_" + ("decode" if m <= G.DECODE_M else
-                                 "tile" if fmt == "mx" else "prefill")
+    gemm = f"gemm_fp4_{fmt}_" + ("decode" if m <= G.DECODE_M else "prefill")
     assert dispatch.launch_counts[gemm] == dispatch.launch_counts[f"fused_linear_{fmt}"] == 1
     assert int((~rows).sum()) <= 1
     assert _same_or_nan(y[rows], plain[rows])

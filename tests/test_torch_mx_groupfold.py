@@ -22,6 +22,15 @@ byte is given).
     against exact rationals at scale bytes 0, 1, 127, 253 and 254.
   * The decode grid (``fp4_decode_split`` with 32-groups) at every
     Qwen3-8B decode shape and 1-132 SMs.
+  * A numpy model of the prefill kernel's arithmetic (``csrc/
+    gemm_fp4_prefill.cuh`` with ``dec::Mx``: int8 m2 products summed per
+    32-group to s = 4p, the table pair {v/4, -MAGIC v/4} of the 256 e8m0
+    bytes, one fold a group in ascending k) against JAX and the group
+    fold at M in {17, 64, 305}, K in {96, 1056, 4128} (K % 64 == 32) and
+    ragged N in the three layouts; against the group fold where fp64 sums
+    round and at scale bytes 0, 253, 254 and 255.
+  * Every e8m0 table entry exact, and the two-FMA term with an
+    accumulator acc + p sa sb rounded once, against exact rationals.
 """
 import struct
 from fractions import Fraction
@@ -246,3 +255,124 @@ def test_mx_decode_split_ragged_k(k):
             kc, splits = KG.fp4_decode_split(m, 33, k, sms, 32)
             assert kc % 256 == 0 and kc <= 2048 and (splits - 1) * kc < k <= splits * kc
             assert splits == 1 or k > 256
+
+
+# the doubled e2m1 magnitudes of codes 0..7 (the m2 the kernels stage as int8)
+E2M1_M2 = np.array([0, 1, 2, 3, 4, 6, 8, 12], np.int64)
+
+
+def _np_codes(a: np.ndarray, layout: str) -> np.ndarray:
+    """A K4 operand in ``layout`` -> its int codes [rows, K]."""
+    if layout == "kmajor_codes":
+        return a.T.astype(np.int64)
+    rows = (a if layout == "tn" else a.T).astype(np.int64)          # packed [rows, K/2]
+    return np.stack([rows & 0xF, rows >> 4], -1).reshape(rows.shape[0], -1)
+
+
+def _scale_tables():
+    """The prefill kernel's tables of the 256 e8m0 bytes: tab_a = {v/4,
+    -MAGIC v/4} and tab_b = v (v = 2^(byte - 127), NaN at 255)."""
+    v = C.e8m0_decode_f32(torch.arange(256)).double().numpy()
+    return 0.25 * v, -MAGIC * (0.25 * v), v
+
+
+def _prefill_model(a, b, a_sf, b_sf, alpha, layout, out_dtype):
+    """K4's prefill kernel's arithmetic in numpy: per 32-group the integer
+    s = 4p of the int8 m2 products (one m16n8k32 MMA), the fold acc = fma(
+    fma(MAGIC + s, sa/4, -MAGIC sa/4), sb, acc) in ascending k, then one
+    rounding to fp32, times alpha in fp32.  numpy has no fma: (MAGIC + s)
+    times a power of two and the cancelling add are exact, and so is the
+    product by sb, so each step rounds once where the fma does
+    (``test_mx_prefill_fold_term_with_an_accumulator``)."""
+    ca = _np_codes(np.asarray(a), layout)
+    cb = _np_codes(np.asarray(b), "tn" if layout == "tn" else "kmajor")
+    sa = np.asarray(a_sf) if layout == "tn" else np.asarray(a_sf).T   # bytes [M, K/32]
+    sb = np.asarray(b_sf) if layout == "tn" else np.asarray(b_sf).T
+    m2a = np.where(ca & 8, -E2M1_M2[ca & 7], E2M1_M2[ca & 7])
+    m2b = np.where(cb & 8, -E2M1_M2[cb & 7], E2M1_M2[cb & 7])
+    tax, tay, tb = _scale_tables()
+    acc = np.zeros((ca.shape[0], cb.shape[0]), np.float64)
+    for g in range(ca.shape[1] // 32):
+        s = m2a[:, 32 * g:32 * g + 32] @ m2b[:, 32 * g:32 * g + 32].T   # |s| <= 4608
+        inner = (MAGIC + s) * tax[sa[:, g]][:, None] + tay[sa[:, g]][:, None]   # p sa
+        acc = acc + inner * tb[sb[:, g]][None, :]
+    y = acc.astype(np.float32) * np.float32(alpha)
+    return torch.from_numpy(y).to(out_dtype)
+
+
+@pytest.mark.parametrize("k,n", [(96, 200), (1056, 33), (4128, 72)])
+@pytest.mark.parametrize("m", [17, 64, 305])
+def test_mx_prefill_model_bitwise_to_jax_and_fold(m, k, n):
+    """The model of the prefill kernel equals JAX's ``matmul_mxf4_bf16_*``
+    (bf16) and the group fold (bf16 and fp32) bit for bit on rotated data,
+    in the kmajor, kmajor_codes and tn layouts, at ragged M and N and K %
+    64 in {32, 0}."""
+    jops, tops = _jax_operands(m, n, k, seed=40 + m + k)
+    jal = jnp.asarray([ALPHA], jnp.float32)
+    for layout, ops in tops.items():
+        for od in (torch.bfloat16, torch.float32):
+            got = _prefill_model(*ops, ALPHA, layout, od)
+            fold = E.gemm_fp4_mx_groupfold_plain(*ops, ALPHA, layout=layout, out_dtype=od)
+            assert torch.equal(got, fold), (layout, od)
+            if od == torch.bfloat16:
+                want = getattr(q, f"matmul_mxf4_bf16_{layout}")(*jops[layout], jal)
+                np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("case", ["round", "round_nan", "extreme"])
+@pytest.mark.parametrize("layout", ["kmajor", "tn", "kmajor_codes"])
+def test_mx_prefill_model_equals_the_fold_at_adversarial_bytes(layout, case):
+    """Where fp64 sums round (``mx_adversarial``, with NaN bytes) and at
+    scale bytes 0, 253, 254 (``mx_spread`` over 240-254 and 0-14) and 255,
+    the model equals the group fold bit for bit, NaN positions included."""
+    m, n = 33, 40
+    if case == "extreme":
+        ops = list(mx_spread(m, n, 1024, seed=3, a_bytes=(240, 255), b_bytes=(0, 15)))
+        ops[2][1, 2], ops[3][31, n - 1] = 255, 255
+    else:
+        ops = list(mx_adversarial(m, n, 4096, seed=4, special=case == "round_nan"))
+    ops = tuple(ops)
+    if layout == "tn":
+        ops = tuple(t.T.contiguous() for t in ops)
+    elif layout == "kmajor_codes":
+        ops = (E.unpack_codes(ops[0].T).T.contiguous().to(torch.uint8), *ops[1:])
+    for od in (torch.bfloat16, torch.float32):
+        got = _prefill_model(*ops, ALPHA, layout, od)
+        want = E.gemm_fp4_mx_groupfold_plain(*ops, ALPHA, layout=layout, out_dtype=od)
+        gn, wn = torch.isnan(got.float()), torch.isnan(want.float())
+        assert torch.equal(gn, wn) and bool(gn.any()) == (case != "round")
+        assert torch.equal(got[~gn], want[~wn])
+
+
+def test_mx_prefill_scale_table_is_exact():
+    """Both entries of the table pair {v/4, -MAGIC v/4}, and v itself, are
+    exact for all 256 e8m0 bytes (2^(byte - 127), 2^-127 at byte 0): MAGIC
+    has three bits set and the exponents stay within fp64's normal range;
+    byte 255 gives NaN in all three."""
+    tax, tay, tb = _scale_tables()
+    for byte in range(256):
+        if byte == 255:
+            assert np.isnan(tax[byte]) and np.isnan(tay[byte]) and np.isnan(tb[byte])
+            continue
+        v = Fraction(2) ** (byte - 127)
+        assert Fraction(tb[byte]) == v and Fraction(tax[byte]) == v / 4
+        assert Fraction(tay[byte]) == -Fraction(MAGIC) * v / 4
+
+
+@pytest.mark.parametrize("eb", [0, 1, 127, 253, 254])
+@pytest.mark.parametrize("ea", [0, 1, 127, 253, 254])
+def test_mx_prefill_fold_term_with_an_accumulator(ea, eb):
+    """fma(fma(MAGIC + s, sa/4, -MAGIC sa/4), sb, acc) is acc + s/4 sa sb
+    rounded once (exact rationals), for group sums s up to 32 * 144 and
+    accumulators across fp64's range, at scale bytes 0 to 254; the model's
+    two numpy operations give the same double."""
+    tax, tay, tb = _scale_tables()
+    sa, sb = Fraction(2) ** (ea - 127), Fraction(2) ** (eb - 127)
+    for s in (-4608, -4607, -12, -1, 0, 1, 3, 1151, 4095, 4608):
+        inner = _fma(MAGIC + s, tax[ea], tay[ea])
+        assert Fraction(inner) == Fraction(s) * sa / 4
+        for acc in (0.0, 1.5, -3.25e10, 2.0 ** -300, -(2.0 ** 200), 7.0 * 2.0 ** 120,
+                    float(Fraction(s) * sa * sb / 4) * (1 + 2.0 ** -52)):
+            want = float(Fraction(acc) + Fraction(s) * sa * sb / 4)
+            assert _fma(inner, tb[eb], acc) == want
+            assert acc + ((MAGIC + s) * tax[ea] + tay[ea]) * tb[eb] == want

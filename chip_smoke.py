@@ -326,14 +326,17 @@ QUANT_CALLS = {4096: 6, 12288: 1}
 
 
 def quantizer_sums(torch, qtimes: dict, layers: int) -> None:
-    """K2's and K6's sums over an int8 decode step (batch 4) and a 512-row
-    prefill from the phase 2 times in ``qtimes`` ({(name, M, K): ms}),
-    beside the least time of one launch on this card: ``torch.cuda._sleep(0)``
-    timed as the kernels are (at decode the byte bound is far below it)."""
+    """The activation quantizers' sums over a decode step (batch 4) and a
+    512-row prefill from the phase 2 times in ``qtimes`` ({(name, M, K):
+    ms}): K2 and K6 with int8-stored weights, K1 and K5 with fp4-stored
+    ones, beside the least time of one launch on this card:
+    ``torch.cuda._sleep(0)`` timed as the kernels are (at decode the byte
+    bound is far below it)."""
     floor = timed_ms(torch, lambda: torch.cuda._sleep(0), 50)
     print(f"phase 2 launch floor: one torch.cuda._sleep(0) launch {floor:.4f} ms "
           f"(CUDA events, 50 launches back to back)")
-    for name, path in (("quantize_mx_int8", "K2, MX int8"), ("quantize_nv_int8", "K6, NV int8")):
+    for name, path in (("quantize_mx_int8", "K2, MX int8"), ("quantize_nv_int8", "K6, NV int8"),
+                       ("quantize_mx", "K1, MX fp4"), ("quantize_nv", "K5, NV fp4")):
         for m in SHAPES_M:
             what = f"decode step (batch {m})" if m <= 16 else f"{m}-row prefill"
             per = ", ".join(f"K={k} {qtimes[name, m, k]:.4f} ms"
@@ -410,6 +413,9 @@ def compare_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None:
     def check_quantize(x, layout, shape, time_it):
         got = Q.quantize_mx(x, h, rot_size=32, layout=layout)
         want = Q.quantize_mx_plain(x, h, rot_size=32, layout=layout)
+        require(all(torch.equal(a, b) for a, b in
+                    zip(got, E.fused_quantize_mx_ordered_plain(x, h, rot_size=32, layout=layout))),
+                f"K1 differs from its ordered plain version at {shape} {layout}")
         require(torch.equal(got[1], want[1]), f"K1 scale bytes differ at {shape} {layout}")
         unpack = (lambda q: E.unpack_codes(q.T)) if layout == "kmajor" else E.unpack_codes
         cg, cw = unpack(got[0]), unpack(want[0])
@@ -422,8 +428,10 @@ def compare_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None:
             ms = timed_ms(torch, lambda: Q.quantize_mx(x, h, rot_size=32, layout=layout))
             plain = timed_ms(torch, lambda: Q.quantize_mx_plain(x, h, rot_size=32,
                                                                layout=layout))
-        record("quantize_mx", shape, err, ms, plain, f" layout={layout} code_mismatch={rate}",
-               quantize_bound(*x.shape, 0.5, 32))
+        record("quantize_mx", shape, err, ms, plain, f" layout={layout} bitwise the ordered plain "
+               f"version, code_mismatch={rate}", quantize_bound(*x.shape, 0.5, 32))
+        if time_it:
+            qtimes[("quantize_mx", *x.shape)] = ms
         return got
 
     # activations [M, K] for both quantizers
@@ -560,6 +568,9 @@ def compare_nv_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None
     def check_quantize(x, gs, layout, shape, time_it):
         got = Q.quantize_nv(x, h, gs, rot_size=ROT, layout=layout)
         want = Q.quantize_nv_plain(x, h, gs, rot_size=ROT, layout=layout)
+        require(all(torch.equal(a, b) for a, b in zip(got, E.fused_quantize_nv_ordered_plain(
+                    x, h, gs, rot_size=ROT, layout=layout))),
+                f"K5 differs from its ordered plain version at {shape} {layout}")
         srate = (got[1] != want[1]).float().mean().item()
         require(srate <= CODE_BUDGET, f"K5 scale-byte mismatch {srate} at {shape} {layout}")
         unpack = (lambda q: E.unpack_codes(q.T).T) if layout == "kmajor" else E.unpack_codes
@@ -573,8 +584,10 @@ def compare_nv_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None
             plain = timed_ms(torch, lambda: Q.quantize_nv_plain(x, h, gs, rot_size=ROT,
                                                                layout=layout))
         record("quantize_nv", shape, err, ms, plain,
-               f" layout={layout} scale_mismatch={srate} code_mismatch={rate}",
-               quantize_bound(*x.shape, 0.5, 16))
+               f" layout={layout} bitwise the ordered plain version, scale_mismatch={srate} "
+               f"code_mismatch={rate}", quantize_bound(*x.shape, 0.5, 16))
+        if time_it:
+            qtimes[("quantize_nv", *x.shape)] = ms
         return got
 
     acts = {}
@@ -750,6 +763,9 @@ def compare_qat_kernels(torch, results: dict) -> None:
     for rows, cols, tag in ((QAT_H, QAT_D, "W1"), (QAT_D, QAT_H, "W2"), (QAT_TOKENS, QAT_D, "X")):
         src = randn(rows, cols, scale=1.0 if tag == "X" else cols ** -0.5)
         xq, xs = Q.quantize_mx(src, h, rot_size=ROT)
+        require(all(torch.equal(a, b) for a, b in
+                    zip((xq, xs), E.fused_quantize_mx_ordered_plain(src, h, rot_size=ROT))),
+                f"K1 (row-major) differs from its ordered plain version on {tag}")
         sc = xs[:rows, :cols // 32]
         f, e = B.mxfp4_transpose_mxfp8(xq, sc)
         fw, ew = B.mxfp4_transpose_mxfp8_plain(xq, sc)
@@ -811,22 +827,26 @@ def compare_qat_kernels(torch, results: dict) -> None:
     for m, k, n in ((QAT_TOKENS, QAT_D, QAT_H), (QAT_TOKENS, QAT_H, QAT_D)):
         x, w = randn(m, k), randn(n, k, scale=k ** -0.5)
         got = Q.quantize_mx(x, h, rot_size=ROT, return_mask=True, layout="kmajor")
-        want = Q.quantize_mx_plain(x, h, rot_size=ROT, return_mask=True, layout="kmajor")
-        require(all(torch.equal(a, b) for a, b in zip(got, want)),
-                f"K1 (K-major, clip mask) differs from its plain version on x {(m, k)}: "
-                f"code, scale, mask bytes differing "
-                f"{[int((a != b).sum()) for a, b in zip(got, want)]}")
+        for want, what in ((E.fused_quantize_mx_ordered_plain, "ordered plain version"),
+                           (Q.quantize_mx_plain, "plain version")):
+            want = want(x, h, rot_size=ROT, return_mask=True, layout="kmajor")
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"K1 (K-major, clip mask) differs from its {what} on x {(m, k)}: "
+                    f"code, scale, mask bytes differing "
+                    f"{[int((a != b).sum()) for a, b in zip(got, want)]}")
         wq = Q.quantize_mx(w, h, rot_size=ROT, layout="kmajor")
-        require(all(torch.equal(a, b) for a, b in
-                    zip(wq, Q.quantize_mx_plain(w, h, rot_size=ROT, layout="kmajor"))),
-                f"K1 (K-major) differs from its plain version on w {(n, k)}")
+        for want, what in ((E.fused_quantize_mx_ordered_plain, "ordered plain version"),
+                           (Q.quantize_mx_plain, "plain version")):
+            require(all(torch.equal(a, b) for a, b in
+                        zip(wq, want(w, h, rot_size=ROT, layout="kmajor"))),
+                    f"K1 (K-major) differs from its {what} on w {(n, k)}")
         ms = timed_ms(torch, lambda: Q.quantize_mx(x, h, rot_size=ROT, return_mask=True,
                                                    layout="kmajor"))
         plain = timed_ms(torch, lambda: Q.quantize_mx_plain(x, h, rot_size=ROT, return_mask=True,
                                                            layout="kmajor"), 5)
         bnd = quantize_bound(m, k, 0.5 + 1 / 8, 32)
         print(f"phase 2 quantize_mx training forward x {(m, k)} kmajor with mask: codes, scales "
-              f"and mask bitwise ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd[0]:.6f} "
+              f"and mask bitwise the ordered plain and plain versions ms={ms:.4f} plain_ms={plain:.4f} bound_ms={bnd[0]:.6f} "
               f"({bnd[1]}); w {(n, k)} bitwise")
         (xi, sx, _), (wi, sw, _) = I8.encode_int8_planes(*got[:2]), I8.encode_int8_planes(*wq)
         _check_k3(torch, G, xi.T, wi.T, sx, sw, 1.0,
@@ -1085,7 +1105,9 @@ def run_and_replay(torch, M, cfg, params, prompt, h, lengths, max_len, steps, ta
 def profile_table(prof, n: int, tag: str, what: str, wall_ms=None) -> None:
     """Print a torch.profiler run's device time by kernel per repetition
     (``n`` repetitions), the device's busy time, and its idle share
-    against ``wall_ms``, the unprofiled host-clock time of one."""
+    against ``wall_ms``, the unprofiled host-clock time of one: the
+    twelve largest kernels, and the fp4 quantizers K1 and K5 wherever
+    they ran."""
     from torch.autograd import DeviceType
     rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
                    for e in prof.key_averages()
@@ -1095,8 +1117,9 @@ def profile_table(prof, n: int, tag: str, what: str, wall_ms=None) -> None:
     idle = "" if wall_ms is None else f", {100 * (1 - busy / wall_ms):.1f}% idle against " \
                                       f"{wall_ms:.2f} ms unprofiled"
     print(f"profile {tag} {what}: device busy {busy:.3f} ms{idle}")
-    for name, ms, cnt in rows[:12]:
-        print(f"profile {tag} {what}: {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt} {name[:100]}")
+    for i, (name, ms, cnt) in enumerate(rows):
+        if i < 12 or "quantize_fp4" in name:
+            print(f"profile {tag} {what}: {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt} {name[:100]}")
 
 
 def profile_path(torch, M, cfg, params, prompt, h, lengths, max_len, tag,

@@ -28,6 +28,34 @@ def rotate(x: torch.Tensor, h: torch.Tensor, rot_size: int) -> torch.Tensor:
     return (xr @ hh).reshape(x.shape)
 
 
+def rotate_ordered(x: torch.Tensor, h: torch.Tensor, rot_size: int) -> torch.Tensor:
+    """:func:`rotate` with each output summed over i = 0 .. rot_size-1 in
+    order, ``v = float32(v + x[i] * h[i][c])`` from v = 0: the order of
+    the kernels' fp32 ``fmaf`` chain.  The two agree bit for bit because a
+    product of two bf16 values is exact in fp32 (8 + 8 significand bits)
+    wherever it is a normal fp32 number, so the FMA's one rounding is the
+    add's."""
+    xr = x.reshape(-1, rot_size).to(torch.float32)
+    hh = h.reshape(rot_size, rot_size).to(x.dtype).to(torch.float32)
+    v = torch.zeros_like(xr)
+    for i in range(rot_size):
+        v = v + xr[:, i:i + 1] * hh[i]
+    return v.reshape(x.shape)
+
+
+def butterfly_sum(g: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a power of two wide) in the kernels' xor
+    butterfly order: offsets n/2, n/4, ..., 1, each step
+    ``v = v + v[..., idx ^ o]``; every position ends with the same sum."""
+    n = g.shape[-1]
+    idx = torch.arange(n, device=g.device)
+    o = n // 2
+    while o:
+        g = g + g[..., idx ^ o]
+        o //= 2
+    return g[..., 0]
+
+
 def pack_codes(codes: torch.Tensor) -> torch.Tensor:
     """int e2m1 codes [..., K] -> packed uint8 [..., K/2] (2i low nibble)."""
     c = codes.to(torch.int32)
@@ -87,12 +115,30 @@ def fused_quantize_mx(a: torch.Tensor, h: torch.Tensor, *, rot_size: int,
     [, mask u8 [K/8, rows]]).  ``layout="kmajor_codes"``: unpacked codes
     u8 [K, rows] instead of packed nibbles.
     """
+    return _quantize_mx(a, h, rot_size, method, return_mask, layout, rotate,
+                        lambda t: t.sum(-1))
+
+
+def fused_quantize_mx_ordered_plain(a: torch.Tensor, h: torch.Tensor, *, rot_size: int,
+                                    method: str = "quest", return_mask: bool = False,
+                                    layout: str = "rowmajor"):
+    """:func:`fused_quantize_mx` with the kernels' orders of sums: the
+    rotation by :func:`rotate_ordered` (one fp32 chain in ascending i) and
+    the QuEST sums of each 32-group by :func:`butterfly_sum` (offsets 16,
+    8, 4, 2, 1).  The tests and ``chip_smoke.py`` hold kernel K1 to it
+    bit for bit; K16 quantizes its activation in the same orders.  The public CPU route
+    stays :func:`fused_quantize_mx`, whose sums are cuBLAS's and XLA's."""
+    return _quantize_mx(a, h, rot_size, method, return_mask, layout, rotate_ordered,
+                        butterfly_sum)
+
+
+def _quantize_mx(a, h, rot_size, method, return_mask, layout, rot_fn, sum_fn):
     k = a.shape[-1]
     rows = a.numel() // k
-    xh = rotate(a, h, rot_size)
+    xh = rot_fn(a, h, rot_size)
     g = xh.reshape(-1, k // 32, 32)
     if method == "quest":
-        scale = C.mx_scale_quest(g.sum(-1), (g * g).sum(-1), 32.0)
+        scale = C.mx_scale_quest(sum_fn(g), sum_fn(g * g), 32.0)
     else:
         scale = C.mx_scale_absmax(g.abs().amax(-1))
     scale_f, byte = C.pow2_floor_e8m0(scale)
@@ -138,15 +184,33 @@ def fused_quantize_nv(a: torch.Tensor, h: torch.Tensor, global_scale, *,
     [round_up(rows, 128), round_up(K/16, 4)]).  ``layout="kmajor"``:
     (packed u8 [K/2, rows], scale bytes u8 [K/16, rows]).
     """
+    return _quantize_nv(a, h, global_scale, rot_size, method, layout, rotate,
+                        lambda t: t.sum(-1))
+
+
+def fused_quantize_nv_ordered_plain(a: torch.Tensor, h: torch.Tensor, global_scale, *,
+                                    rot_size: int, method: str = "abs_max",
+                                    layout: str = "rowmajor"):
+    """:func:`fused_quantize_nv` with the kernels' orders of sums: the
+    rotation by :func:`rotate_ordered` and the QuEST sums of each 16-group
+    by :func:`butterfly_sum` (offsets 8, 4, 2, 1).  The tests and
+    ``chip_smoke.py`` hold kernel K5 to it bit for bit; K17 quantizes its
+    activation in the same orders.  The public CPU route stays
+    :func:`fused_quantize_nv`."""
+    return _quantize_nv(a, h, global_scale, rot_size, method, layout, rotate_ordered,
+                        butterfly_sum)
+
+
+def _quantize_nv(a, h, global_scale, rot_size, method, layout, rot_fn, sum_fn):
     k = a.shape[-1]
     rows = a.numel() // k
-    xh = rotate(a, h, rot_size)
+    xh = rot_fn(a, h, rot_size)
     g = xh.reshape(-1, k // 16, 16)
     if method == "abs_max":
         byte, mul = C.nv_absmax_scale_bytes(g.abs().amax(-1),
                                             as_alpha(global_scale, a.device))
     else:
-        byte, mul = C.nv_quest_scale_bytes(g.sum(-1), (g * g).sum(-1))
+        byte, mul = C.nv_quest_scale_bytes(sum_fn(g), sum_fn(g * g))
     codes = C.e2m1_rtne_codes((g * mul[..., None]).reshape(xh.shape))
     sbytes = byte.reshape(rows, k // 16).to(torch.uint8)
     if layout == "kmajor":

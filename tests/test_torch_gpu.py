@@ -4,11 +4,14 @@ the H100 through ``chip_smoke.py`` (which runs this file with
 ``--noconftest``, since the repo's conftest imports JAX).  This file
 imports no JAX.
 
-Tolerances: MX quantizer scale bytes exact and codes within a 1e-4
-mismatch rate (the kernels sum the rotation in another order than
-cuBLAS); NV quantizer scale bytes and codes within a 1e-4 mismatch rate
-(an e4m3 byte, unlike a power-of-two floor, moves with an ulp of its
-input), K6's a' and sigma equal wherever a row's bytes agree; GEMMs
+Tolerances: K1 and K5 (the fp4 quantizers) bitwise against their
+ordered plain versions (``emulation.fused_quantize_{mx,nv}_ordered_plain``,
+the kernels' orders of sums), and against the public plain versions
+(cuBLAS's order): MX scale bytes exact and codes within a 1e-4 mismatch
+rate, NV scale bytes and codes within a 1e-4 mismatch rate (an e4m3
+byte, unlike a power-of-two floor, moves with an ulp of its input); K2
+and K6 likewise against the public plain versions, K6's a' and sigma
+equal wherever a row's bytes agree; GEMMs
 bitwise, but K11 (fp32 sums of each 32-group, then fp64) within a 1e-3
 bf16 mismatch rate and 1 ulp of its fp64 plain version; the QAT
 backward kernels K8-K10, K14 and K15 bitwise (a NaN's bf16 bits aside);
@@ -44,7 +47,8 @@ from qutlass_tpu_torch.ops import dispatch
 from qutlass_tpu_torch.ops import emulation as E
 from qutlass_tpu_torch.nn import linear as L
 from qutlass_tpu_torch.ops import int8path as I8
-from torch_helpers import mx_adversarial, mx_spread, nan_equal, nv_adversarial
+from torch_helpers import (MX_ORDER_GROUP, NV_ORDER_GROUP, mx_adversarial, mx_spread, nan_equal,
+                           nv_adversarial)
 
 pytestmark = pytest.mark.gpu
 
@@ -72,12 +76,26 @@ def _codes(q, layout):
     return q.T.to(torch.int32)
 
 
+# K1 and K5: the ragged shapes, then rows 1, 4, 13, 16, 17 and 512 (the
+# kernels' row tiles and their edges) at K 96, 160, 4096 and 12288, every
+# rotation size that divides K
+FP4_Q_CASES = ([(16, (70, 640)), (32, (70, 640)), (64, (70, 640)), (128, (70, 640)),
+                (16, (33, 160)), (32, (1, 96))]
+               + [(rot, (rows, k)) for rows in (1, 4, 13, 16, 17, 512)
+                  for k in (96, 160, 4096, 12288) for rot in (16, 32, 64, 128) if k % rot == 0])
+
+
+def _bitwise(got, want) -> bool:
+    return len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("layout", ["rowmajor", "kmajor", "kmajor_codes"])
-@pytest.mark.parametrize("rot,shape", [(16, (70, 640)), (32, (70, 640)),
-                                       (64, (70, 640)), (128, (70, 640)),
-                                       (16, (33, 160)), (32, (1, 96))])
+@pytest.mark.parametrize("rot,shape", FP4_Q_CASES)
 @pytest.mark.parametrize("method", ["quest", "abs_max"])
 def test_quantize_mx_kernel(dev, method, rot, shape, layout):
+    """Codes, scale bytes and mask bitwise the ordered plain version (the
+    kernel's orders of sums); against the plain version (cuBLAS's order)
+    scale bytes exact, codes and mask within a 1e-4 mismatch rate."""
     x, h = _x(dev, *shape, scale=25.0), qt.hadamard_matrix(rot, device=dev)
     mask = method == "quest"
     got = Q.quantize_mx(x, h, rot_size=rot, method=method, return_mask=mask,
@@ -85,10 +103,64 @@ def test_quantize_mx_kernel(dev, method, rot, shape, layout):
     want = Q.quantize_mx_plain(x, h, rot_size=rot, method=method,
                                return_mask=mask, layout=layout)
     torch.cuda.synchronize()
+    assert _bitwise(got, E.fused_quantize_mx_ordered_plain(
+        x, h, rot_size=rot, method=method, return_mask=mask, layout=layout))
     assert torch.equal(got[1], want[1])
     assert (_codes(got[0], layout) != _codes(want[0], layout)).float().mean() <= 1e-4
     if mask:
         assert (got[2] != want[2]).float().mean() <= 1e-4
+
+
+def _fp4_quantizers(dev, rot, h=None):
+    h = qt.hadamard_matrix(rot, device=dev) if h is None else h
+    gs = torch.tensor([2.5], device=dev)
+    return {"mx": (lambda x, **kw: Q.quantize_mx(x, h, rot_size=rot, layout="kmajor", **kw),
+                   lambda x, **kw: E.fused_quantize_mx_ordered_plain(
+                       x, h, rot_size=rot, layout="kmajor", **kw)),
+            "nv": (lambda x, **kw: Q.quantize_nv(x, h, gs, rot_size=rot, layout="kmajor", **kw),
+                   lambda x, **kw: E.fused_quantize_nv_ordered_plain(
+                       x, h, gs, rot_size=rot, layout="kmajor", **kw))}
+
+
+@pytest.mark.parametrize("rows,k", [(4, 4096), (13, 160), (512, 1024)])
+@pytest.mark.parametrize("fmt", ["mx", "nv"])
+def test_fp4_quantizer_in_cuda_graph(dev, fmt, rows, k):
+    """K1 (with the clip mask) and K5 captured in a CUDA graph and replayed
+    on new inputs give the eager call's bytes: one launch each, no host
+    sync and no scratch."""
+    fn, _ = _fp4_quantizers(dev, 32)[fmt]
+    kw = {"return_mask": True} if fmt == "mx" else {}
+    static_x = _x(dev, rows, k, seed=7, scale=25.0)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(static_x, **kw)              # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = dispatch.launch_counts[f"quantize_{fmt}"]
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn(static_x, **kw)
+    assert dispatch.launch_counts[f"quantize_{fmt}"] == before + 1
+    for seed in (8, 9, 10):
+        static_x.copy_(_x(dev, rows, k, seed=seed, scale=25.0))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _bitwise(out, fn(static_x, **kw))
+
+
+@pytest.mark.parametrize("fmt", ["mx", "nv"])
+def test_fp4_quantizers_keep_the_butterfly_order(dev, fmt):
+    """Under the identity rotation, rows of a group whose QuEST sums round
+    to another scale byte from left to right than in the xor butterfly
+    (tests/test_torch_quantize_order.py): K1 and K5 give the ordered plain
+    version's bytes."""
+    vals = MX_ORDER_GROUP if fmt == "mx" else NV_ORDER_GROUP
+    n = len(vals)
+    row = torch.tensor(vals, device=dev).repeat(4096 // n).to(torch.bfloat16)
+    x = torch.stack([row, -row, row.roll(n), row * 2]).contiguous()
+    fn, ordered = _fp4_quantizers(dev, n, torch.eye(n, device=dev, dtype=torch.bfloat16))[fmt]
+    kw = {"method": "quest"}
+    assert _bitwise(fn(x, **kw), ordered(x, **kw))
 
 
 # K2 and K6 split K over a grid of (row tiles of 16 rows at rows <= 16, 32
@@ -356,14 +428,19 @@ def test_gemm_fp4_kernel_and_int8_agree(dev, m, n, k):
 @pytest.mark.parametrize("layout", ["rowmajor", "kmajor"])
 @pytest.mark.parametrize("rot,shape", [(16, (70, 640)), (32, (70, 640)),
                                        (64, (70, 640)), (128, (70, 640)),
-                                       (16, (33, 48)), (32, (1, 96))])
+                                       (16, (33, 48)), (32, (1, 96))] + FP4_Q_CASES[6:])
 @pytest.mark.parametrize("method", ["quest", "abs_max"])
 def test_quantize_nv_kernel(dev, method, rot, shape, layout):
+    """Codes and scale bytes bitwise the ordered plain version (the
+    kernel's orders of sums); against the plain version (cuBLAS's order)
+    each within a 1e-4 mismatch rate."""
     x, h = _x(dev, *shape, scale=25.0), qt.hadamard_matrix(rot, device=dev)
     gs = torch.tensor(2.5, device=dev)
     got = Q.quantize_nv(x, h, gs, rot_size=rot, method=method, layout=layout)
     want = Q.quantize_nv_plain(x, h, gs, rot_size=rot, method=method, layout=layout)
     torch.cuda.synchronize()
+    assert _bitwise(got, E.fused_quantize_nv_ordered_plain(x, h, gs, rot_size=rot,
+                                                           method=method, layout=layout))
     assert got[1].shape == want[1].shape and got[0].shape == want[0].shape
     assert (got[1] != want[1]).float().mean() <= 1e-4
     assert (_codes(got[0], layout) != _codes(want[0], layout)).float().mean() <= 1e-4

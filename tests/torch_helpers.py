@@ -109,3 +109,21 @@ def mx_spread(m: int, n: int, k: int, seed: int, a_bytes=(104, 131), b_bytes=(12
     ast = rng.integers(*a_bytes, (k // 32, m), dtype=np.uint8)
     bst = rng.integers(*b_bytes, (k // 32, n), dtype=np.uint8)
     return tuple(torch.from_numpy(t) for t in (at, bt, ast, bst))
+
+
+# Groups of bf16 values whose fp32 QuEST sums round to a different scale
+# byte in the xor butterfly order and from left to right (found by a
+# seeded search over groups with elements spread over 12 binades): under
+# the identity rotation the rotated values are the inputs, so the group's
+# scale byte shows which order a quantizer summed in.
+NV_ORDER_GROUP = [
+    7.581710815429688e-05, -0.00250244140625, -10.25, 10.3125, -30.125, -9.1875,
+    2.453125, -44.5, 28.375, 0.10888671875, -16.25, -0.080078125, 0.1982421875,
+    0.0118408203125, -15.375, -0.03369140625]
+MX_ORDER_GROUP = [
+    -0.00518798828125, 3.734375, -0.337890625, 68.0, 62.25, -0.0181884765625,
+    -0.111328125, 55.75, -0.0091552734375, 2.96875, 0.004058837890625,
+    0.357421875, 0.062255859375, 55.0, -0.0194091796875, 3.375, -0.052978515625,
+    1.4453125, -0.016845703125, -67.5, 0.0169677734375, 59.25, 0.6484375, -59.0,
+    -9.125, -0.1123046875, 16.25, -91.0, -0.71484375, -0.002227783203125,
+    0.318359375, -0.7109375]

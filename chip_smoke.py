@@ -60,12 +60,9 @@ Phases 4 to 8 each reset the kernels' launch counters just before they
 drive their path (phase 8: each route's run) and read them just after.
 Then one JSON line of per-kernel results and, last, the result line.
 
-Usage: python3 chip_smoke.py [--layers N] [--profile] [--qat-lr LR]
+Usage: python3 chip_smoke.py [--layers N] [--qat-lr LR]
 (``--layers`` cuts the serving depth only; the default is the model's 36
-layers.  ``--qat-lr`` sets phase 6's Adam learning rate.  ``--profile``
-adds, for each served configuration, the device time by kernel over
-three decode steps and one prefill, and for each grad mode of phase 6
-that of one training step, from ``torch.profiler``.)
+layers.  ``--qat-lr`` sets phase 6's Adam learning rate.)
 """
 from __future__ import annotations
 
@@ -1102,55 +1099,12 @@ def run_and_replay(torch, M, cfg, params, prompt, h, lengths, max_len, steps, ta
     return logits, toks, prefill_ms, ms_per_token, generate_ms
 
 
-def profile_table(prof, n: int, tag: str, what: str, wall_ms=None) -> None:
-    """Print a torch.profiler run's device time by kernel per repetition
-    (``n`` repetitions), the device's busy time, and its idle share
-    against ``wall_ms``, the unprofiled host-clock time of one: the
-    twelve largest kernels, and the fp4 quantizers K1 and K5 wherever
-    they ran."""
-    from torch.autograd import DeviceType
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / n, e.count // n)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                  key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    idle = "" if wall_ms is None else f", {100 * (1 - busy / wall_ms):.1f}% idle against " \
-                                      f"{wall_ms:.2f} ms unprofiled"
-    print(f"profile {tag} {what}: device busy {busy:.3f} ms{idle}")
-    for i, (name, ms, cnt) in enumerate(rows):
-        if i < 12 or "quantize_fp4" in name:
-            print(f"profile {tag} {what}: {ms:9.3f} ms {100 * ms / busy:5.1f}% x{cnt} {name[:100]}")
-
-
-def profile_path(torch, M, cfg, params, prompt, h, lengths, max_len, tag,
-                 decode_ms=None, steps: int = 3) -> None:
-    """Print the device time by kernel of one prefill and of ``steps``
-    decode steps (torch.profiler), the device's busy time, and its idle
-    share against ``decode_ms``, the unprofiled host-clock step time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    run = dict(quantized=True, lengths=lengths)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        _, cache = M.prefill(cfg, params, prompt, h, max_len=max_len, **run)
-        torch.cuda.synchronize()
-    profile_table(prof, 1, tag, "prefill")
-    tok, pos = prompt[:, 0].clone(), lengths.clone()
-    with profile(activities=acts) as prof:
-        for _ in range(steps):
-            _, cache = M.decode_step(cfg, params, cache, tok, pos, h, quantized=True)
-            pos = pos + 1
-        torch.cuda.synchronize()
-    profile_table(prof, steps, tag, "decode step", decode_ms)
-
-
 def cosine(a, b) -> float:
     a, b = a.float().ravel(), b.float().ravel()
     return float(a @ b / (a.norm() * b.norm()))
 
 
-def serve(torch, layers: int, steps: int, prof: bool = False) -> dict:
+def serve(torch, layers: int, steps: int) -> dict:
     """Phase 4, the MXFP4 path."""
     from qutlass_tpu_torch import models as M
     from qutlass_tpu_torch.models.transformer import PROJECTIONS
@@ -1205,15 +1159,10 @@ def serve(torch, layers: int, steps: int, prof: bool = False) -> dict:
     for name in MX_PATH:
         require(counts[name] > 0, f"kernel {name} was not launched by the MX path")
     print(f"phase 4 first request's tokens: {toks[0, :16].tolist()}")
-    if prof:
-        profile_path(torch, M, cfg, w_int8, prompt, h, lengths, max_len, "MX int8",
-                     ms_per_token)
-        profile_path(torch, M, cfg, w_fp4, prompt, h, lengths, max_len, "MX fp4",
-                     ms_per_token4)
     return counts
 
 
-def serve_nv(torch, layers: int, steps: int, prof: bool = False) -> dict:
+def serve_nv(torch, layers: int, steps: int) -> dict:
     """Phase 5, the NVFP4 path: int8-stored weights with the exact
     per-call activation scale, then with calibrated static scales, then
     fp4-stored weights."""
@@ -1237,9 +1186,6 @@ def serve_nv(torch, layers: int, steps: int, prof: bool = False) -> dict:
 
     exact = run_and_replay(torch, M, cfg, w_int8, prompt, h, lengths, max_len, steps,
                            "phase 5 NV int8 exact gsx")
-    if prof:
-        profile_path(torch, M, cfg, w_int8, prompt, h, lengths, max_len, "NV int8 exact",
-                     exact[3])
     t0 = time.perf_counter()
     M.calibrate_nv_gsx(cfg, w_int8, prompt, h)
     calib_ms = sync_ms(torch, t0)
@@ -1274,10 +1220,6 @@ def serve_nv(torch, layers: int, steps: int, prof: bool = False) -> dict:
     for name in NV_PATH:
         require(counts[name] > 0, f"kernel {name} was not launched by the NV path")
     print(f"phase 5 first request's tokens: {exact[1][0, :16].tolist()}")
-    if prof:
-        profile_path(torch, M, cfg, w_int8, prompt, h, lengths, max_len, "NV int8 static",
-                     static[3])
-        profile_path(torch, M, cfg, w_fp4, prompt, h, lengths, max_len, "NV fp4", fp4[3])
     return counts
 
 
@@ -1292,7 +1234,7 @@ def _planes_to_natural(v):
     return v.reshape(r, 2, k // 2).transpose(1, 2).reshape(r, k)
 
 
-def train_qat(torch, prof: bool = False, lr: float = QAT_LR):
+def train_qat(torch, lr: float = QAT_LR):
     """Phase 6: the QAT example's MLP at Qwen3-8B width trained with Adam
     in each grad mode; gradient cosines against the exact STE; the
     reference's byte-level MXFP8 backward flow on layer 1.  Returns the
@@ -1355,16 +1297,6 @@ def train_qat(torch, prof: bool = False, lr: float = QAT_LR):
         step_ms[mode] = sum(times[1:]) / (QAT_STEPS - 1)
         print(f"phase 6 grad_mode={mode}: {step_ms[mode]:.2f} ms/step (host clock, mean of steps "
               f"2-{QAT_STEPS}; step 1 {times[0]:.1f} ms); losses {[round(v, 5) for v in losses]}")
-        if prof:
-            from torch.profiler import ProfilerActivity, profile
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-                loss = loss_of(0)
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                opt.step()
-                torch.cuda.synchronize()
-            profile_table(p, 1, f"QAT {mode}", "training step", step_ms[mode])
     counts_train = dict(dispatch.launch_counts)
     trained = {k: v.detach().clone() for k, v in mlp.state_dict().items()}   # for phase 8
     for mode, losses in trajectories.items():        # every mode's trajectory is printed first
@@ -1657,7 +1589,6 @@ def fused_linear_phase(torch, trained) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=36)
-    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--qat-lr", type=float, default=QAT_LR)
     args = ap.parse_args()
     if not (ROOT / "qutlass_tpu_torch" / "csrc").is_dir():
@@ -1714,14 +1645,14 @@ def main() -> int:
 
     # phases 4-8; K1, K3 and K4 run on several paths, and their launches
     # are the sum
-    counts = serve(torch, args.layers, STEPS, args.profile)
+    counts = serve(torch, args.layers, STEPS)
     for name in MX_PATH:
         results[name]["launches"] += counts[name]
-    counts = serve_nv(torch, args.layers, STEPS, args.profile)
+    counts = serve_nv(torch, args.layers, STEPS)
     for name in NV_PATH:
         results[name]["launches"] += counts[name]
     # phase 6
-    counts, layer1, trained = train_qat(torch, args.profile, args.qat_lr)
+    counts, layer1, trained = train_qat(torch, args.qat_lr)
     for name in QAT_PATH:
         results[name]["launches"] += counts[name]
     # phase 7: every kernel it launched counts

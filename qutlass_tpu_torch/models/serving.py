@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from .. import utils
+from ..ops.dispatch import span
 from .transformer import (ModelConfig, _head_logits, _linear, _mlp, _rms_norm,
                           _rope)
 
@@ -28,6 +29,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
             for _ in range(cfg.num_layers)]
 
 
+@span("qt.attend")
 def _attend(cfg: ModelConfig, qh, kc, vc, pos_limit) -> torch.Tensor:
     """q [B, T, H, D] against cache k/v [B, L, KVH, D], masked to
     positions < pos_limit + per-query causality offset (and to the
@@ -92,6 +94,7 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return _head_logits(x, params.get("lm_head", params["embed"]))
 
 
+@span("qt.prefill")
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, h=None, *,
             max_len: int, quantized: bool = False, method: str = "quest",
@@ -113,6 +116,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, h=None, *,
     return _logits(cfg, params, last), cache
 
 
+@span("qt.decode_step")
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: dict, cache: list, token, pos, h=None,
                 *, quantized: bool = False, method: str = "quest"):

@@ -22,6 +22,7 @@ import torch
 from .. import utils
 from ..nn import linear as _lin
 from ..nn.linear import quantize_weight, quantized_linear
+from ..ops.dispatch import span
 
 # The attention einsums and rotations are fp32 reference math: no TF32.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,6 +190,7 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+@span("qt.rope")
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding over the last dim of [B, T, H, D].
 

@@ -29,6 +29,7 @@ from torch import nn
 import qutlass_tpu_torch as q
 from ..kernels.gemm import gemm_int8_rank1
 from ..ops import int8path as I8
+from ..ops.dispatch import span
 from ..ops.emulation import rotate
 from ..utils import h128, pad_to_block, resolve_device
 
@@ -148,6 +149,7 @@ def nv_linear(x: torch.Tensor, w: Mapping, h: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], n)
 
 
+@span("qt.linear")
 def quantized_linear(x: torch.Tensor, w: Mapping, h: torch.Tensor,
                      method: str = "quest") -> torch.Tensor:
     """Apply a stored quantized weight, NVFP4 (``gs`` leaf) or MXFP4."""

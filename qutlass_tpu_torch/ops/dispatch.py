@@ -14,14 +14,27 @@ that ran its decode or its prefill kernel; ``gemm_fp4_nv`` counts every
 launch of K7, ``gemm_fp4_nv_decode`` and ``gemm_fp4_nv_prefill`` those that
 ran its decode or its prefill kernel.
 
+``span(name)`` decorates a function of the serving path: while a torch
+profiler records, each call is a ``record_function(name)`` range on the
+profile's clock beside its device trace, and the launch calls made in it
+nest in it; otherwise the call goes straight through after one flag
+read (a ``record_function`` costs 7-14 us even with no profiler running).
+The ranges live only in the profile's memory.  A span makes no CUDA call,
+so it is harmless under CUDA-graph capture.  The spans, outermost first:
+``qt.decode_step`` / ``qt.prefill`` (``models.serving``), in them
+``qt.attend``, ``qt.rope`` and ``qt.linear`` (``nn.linear.quantized_linear``,
+the activation's quantize and the GEMM).
+
 ``fused_linear_single_kernel`` is the JAX package's switch between the
 two bitwise-identical routes of ``fused_linear_mxf4`` / ``_nvf4``.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
+from torch.autograd import profiler as _profiler
 
 KERNELS = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1",
            "gemm_fp4_mx", "gemm_fp4_mx_decode", "gemm_fp4_mx_prefill", "quantize_nv",
@@ -40,6 +53,20 @@ def reset_launch_counts() -> None:
 
 def note_launch(name: str) -> None:
     launch_counts[name] += 1
+
+
+def span(name: str):
+    """Decorate a function so that each call is a ``record_function(name)``
+    range while a torch profiler records."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
 
 
 def fused_linear_single_kernel() -> bool:

@@ -26,7 +26,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      single-kernel linears K16 / K17 at decode, small-prefill and
      prefill sizes of Qwen3-8B's MLP, also bitwise against the
      composition they replace (K1 + K4, K5 + K7)
-  3. the ``gpu``-marked tests, ``tests/test_torch_gpu.py``
+  3. the ``gpu``-marked tests, ``tests/test_torch_gpu.py`` and
+     ``tests/test_torch_decode_graph.py``
   4. MXFP4 serving: four ragged requests at Qwen3-8B width (seeded
      random weights, quantized on the card), 32 greedy tokens with the
      weights stored as int8 (the default), checked against a
@@ -1637,7 +1638,8 @@ def main() -> int:
     test = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q",
                            "-p", "no:cacheprovider", "-W",
                            "ignore::pytest.PytestUnknownMarkWarning",
-                           "tests/test_torch_gpu.py"], cwd=ROOT, capture_output=True,
+                           "tests/test_torch_gpu.py", "tests/test_torch_decode_graph.py"],
+                          cwd=ROOT, capture_output=True,
                           text=True, timeout=600)
     tail = test.stdout.strip().splitlines()[-1:] or [""]
     print(f"phase 3 gpu tests ({time.perf_counter() - t0:.0f} s): {tail[0]}")

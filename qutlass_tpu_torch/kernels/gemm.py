@@ -44,6 +44,7 @@ from . import _build
 DECODE_M = 16            # K3's decode kernel takes M <= 16 rows
 _DECODE_MAX_KC = 2048    # its K slices are at most this long
 _counters: dict[tuple[int, int], torch.Tensor] = {}
+_retired: list[torch.Tensor] = []   # outgrown counters a captured graph may still use
 _FP4_DECODE_BLOCKS = 2   # K4's and K7's decode grid: resident blocks an SM
 
 _NV_PLAIN = {"tn": _emu.matmul_nvf4_bf16_tn,
@@ -133,6 +134,8 @@ def _decode_counters(dev: torch.device, tiles: int) -> torch.Tensor:
     key = (dev.index, stream.cuda_stream)
     cnt = _counters.get(key)
     if cnt is None or cnt.numel() < tiles:
+        if cnt is not None:
+            _retired.append(cnt)
         cnt = _counters[key] = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=dev)
     return cnt
 

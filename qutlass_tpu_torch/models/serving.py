@@ -8,15 +8,27 @@ stored leaves in ``transformer._linear``) when ``quantized``.  Unlike
 the JAX package, the KV cache is updated IN PLACE (``_block`` writes
 into the cache tensors and returns the same dict), which saves a copy of
 the cache per layer per step; ``prefill`` always builds a fresh cache.
+
+A ragged decode step on the card is a CUDA graph of its cache: captured
+on the cache's first step, replayed on every later one (``decode_step``).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import utils
+from ..ops import dispatch
 from ..ops.dispatch import span
 from .transformer import (ModelConfig, _head_logits, _linear, _mlp, _rms_norm,
                           _rope)
+
+# the decode step's CUDA graph of each KV cache, keyed by the cache's
+# layer-0 ``k`` tensor: it and its memory pool go with the cache
+_GRAPHS = WeakIdKeyDictionary()
+_CAPTURE_STREAMS: dict = {}        # device -> the stream graphs are captured on
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
@@ -116,17 +128,97 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, h=None, *,
     return _logits(cfg, params, last), cache
 
 
+def _decode(cfg: ModelConfig, params: dict, cache: list, token, pos, h,
+            quantized: bool, method: str) -> torch.Tensor:
+    """The decode step's body: logits [B, vocab], the cache written in place."""
+    x = params["embed"][token][:, None]                   # [B, 1, D]
+    for layer, cache_l in zip(params["layers"], cache):
+        x, _ = _block(cfg, layer, x, cache_l, pos, h, method, quantized)
+    return _logits(cfg, params, x[:, 0])
+
+
+@dataclasses.dataclass
+class _Graph:
+    """A cache's captured decode step, its static inputs and output, the
+    launches it makes, and what it was captured for.  It holds ``params``
+    (the graph reads their memory) but not the cache."""
+    key: tuple
+    params: dict
+    graph: torch.cuda.CUDAGraph
+    token: torch.Tensor
+    pos: torch.Tensor
+    logits: torch.Tensor
+    launches: dict
+
+
+def _graph_key(cfg, cache, token, pos, h, quantized, method) -> tuple:
+    return (cfg, None if h is None else h.data_ptr(), token.shape[0], quantized, method,
+            token.dtype, pos.dtype, tuple(t.data_ptr() for c in cache for t in (c["k"], c["v"])))
+
+
+@span("qt.graph_capture")
+def _capture(cfg, params, cache, token, pos, h, quantized, method, key) -> tuple:
+    """The cache's first step: the eager step on the capture stream (its
+    logits are this step's), then the step's capture into static token,
+    position and logits buffers.  Nothing runs during the capture: the
+    cache is written once.  Returns (logits, _Graph)."""
+    dev = token.device
+    stream = _CAPTURE_STREAMS.get(dev)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    cur = torch.cuda.current_stream(dev)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        logits = _decode(cfg, params, cache, token, pos, h, quantized, method)
+    cur.wait_stream(stream)
+    logits.record_stream(cur)
+    token, pos = token.clone(), pos.clone()
+    before = dict(dispatch.launch_counts)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = _decode(cfg, params, cache, token, pos, h, quantized, method)
+    # a replay launches what the capture noted: count it there, not here
+    launches = {k: n - before[k] for k, n in dispatch.launch_counts.items() if n != before[k]}
+    dispatch.launch_counts.update(before)
+    return logits, _Graph(key, params, graph, token, pos, out, launches)
+
+
+@span("qt.graph_replay")
+def _replay(entry: _Graph, token, pos) -> torch.Tensor:
+    entry.token.copy_(token)
+    entry.pos.copy_(pos)
+    entry.graph.replay()
+    for k, n in entry.launches.items():
+        dispatch.launch_counts[k] += n
+    return entry.logits.clone()         # the caller's own: the next replay rewrites entry.logits
+
+
 @span("qt.decode_step")
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: dict, cache: list, token, pos, h=None,
                 *, quantized: bool = False, method: str = "quest"):
     """One decode step: token [B] at position ``pos`` (an int, or a [B]
     tensor for ragged batches).  Returns (logits [B, vocab], cache),
-    the cache updated in place."""
-    x = params["embed"][token][:, None]                   # [B, 1, D]
-    for layer, cache_l in zip(params["layers"], cache):
-        x, _ = _block(cfg, layer, x, cache_l, pos, h, method, quantized)
-    return _logits(cfg, params, x[:, 0]), cache
+    the cache updated in place.
+
+    A ragged step on the card (``pos`` a [B] tensor, the tensors on CUDA,
+    the stream not capturing) runs as one CUDA graph of its cache: the
+    cache's first step runs eagerly and captures the step, every later
+    step copies ``token`` and ``pos`` in and replays it, the same kernels
+    bit for bit.  A change of ``params``, ``h``, the batch, ``quantized``,
+    ``method``, the inputs' dtypes or the cache's tensors captures anew.
+    An int ``pos`` and CPU tensors run eagerly."""
+    args = (cfg, params, cache, token, pos, h, quantized, method)
+    if not (isinstance(pos, torch.Tensor) and pos.ndim == 1
+            and all(t.is_cuda for t in (token, pos, cache[0]["k"], params["embed"]))
+            and not torch.cuda.is_current_stream_capturing()):
+        return _decode(*args), cache
+    key = _graph_key(cfg, cache, token, pos, h, quantized, method)
+    entry = _GRAPHS.get(cache[0]["k"])
+    if entry is None or entry.key != key or entry.params is not params:
+        logits, _GRAPHS[cache[0]["k"]] = _capture(*args, key)
+        return logits, cache
+    return _replay(entry, token, pos), cache
 
 
 def sample_logits(logits: torch.Tensor, generator: torch.Generator | None = None,

@@ -15,6 +15,7 @@ activation global scale is the exact rotated amax or a calibrated one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -190,16 +191,22 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_inv_freq(d: int, theta: float, device: torch.device) -> torch.Tensor:
+    """RoPE's inverse frequencies for head size ``d``, fp32, built once per
+    device and kept there: a copy from the host on every call would wait
+    for the stream, and cannot be captured in a CUDA graph."""
+    return torch.tensor(1.0 / (theta ** (np.arange(0, d, 2) / d)),
+                        dtype=torch.float32, device=device)
+
+
 @span("qt.rope")
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding over the last dim of [B, T, H, D].
 
     ``positions``: [T] (shared across the batch) or [B, T] (per row).
     """
-    d = x.shape[-1]
-    inv = torch.tensor(1.0 / (theta ** (np.arange(0, d, 2) / d)),
-                       dtype=torch.float32, device=x.device)
-    ang = positions[..., None].to(torch.float32) * inv
+    ang = positions[..., None].to(torch.float32) * _rope_inv_freq(x.shape[-1], theta, x.device)
     if positions.ndim == 1:
         ang = ang[None]
     cos = torch.cos(ang)[:, :, None, :]

@@ -23,7 +23,10 @@ The ranges live only in the profile's memory.  A span makes no CUDA call,
 so it is harmless under CUDA-graph capture.  The spans, outermost first:
 ``qt.decode_step`` / ``qt.prefill`` (``models.serving``), in them
 ``qt.attend``, ``qt.rope`` and ``qt.linear`` (``nn.linear.quantized_linear``,
-the activation's quantize and the GEMM).
+the activation's quantize and the GEMM).  A ragged decode step on the card
+holds ``qt.graph_capture`` (a cache's first step: its eager run, then the
+CUDA graph's capture) or ``qt.graph_replay`` (every later step: no other
+span runs in it).  A replay adds the launches its capture noted.
 
 ``fused_linear_single_kernel`` is the JAX package's switch between the
 two bitwise-identical routes of ``fused_linear_mxf4`` / ``_nvf4``.

@@ -4,7 +4,7 @@
 Phases, in order; any failure exits non-zero before the result lines:
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions
-  1. build the seventeen Hopper kernels from ``qutlass_tpu_torch/csrc``
+  1. build the eighteen Hopper kernels from ``qutlass_tpu_torch/csrc``
   2. hold each kernel against its plain PyTorch version at the main
      paths' shapes and time both (CUDA events after warm-up), beside
      the card's bound for the same work and, where one PyTorch call
@@ -25,9 +25,12 @@ Phases, in order; any failure exits non-zero before the result lines:
      phase 6, the backward-operand kernels K12-K15 at phase 7's, and the
      single-kernel linears K16 / K17 at decode, small-prefill and
      prefill sizes of Qwen3-8B's MLP, also bitwise against the
-     composition they replace (K1 + K4, K5 + K7)
-  3. the ``gpu``-marked tests, ``tests/test_torch_gpu.py`` and
-     ``tests/test_torch_decode_graph.py``
+     composition they replace (K1 + K4, K5 + K7); the grouped expert GEMM
+     K18 at LFM2-24B-A2B's decode shapes (8 tokens, top 4 of 64 experts;
+     gate / up and down), bitwise, its routing counter against the
+     routing, timed beside the bound of reading each routed expert once
+  3. the ``gpu``-marked tests, ``tests/test_torch_gpu.py``,
+     ``tests/test_torch_decode_graph.py`` and ``tests/test_torch_lfm2_moe.py``
   4. MXFP4 serving: four ragged requests at Qwen3-8B width (seeded
      random weights, quantized on the card), 32 greedy tokens with the
      weights stored as int8 (the default), checked against a
@@ -56,14 +59,20 @@ Phases, in order; any failure exits non-zero before the result lines:
      unset (K1 + K4) and set (K16), bitwise equal; Qwen3-8B's gate and
      down projections on NVFP4 weights through ``fused_linear_nvf4`` (K5 +
      K7 against K17) on 4 and 64 tokens
+  9. LFM2-24B-A2B serving at its published widths, its first six layers
+     (short conv, attention, dense and expert layers): eight ragged
+     prompts, 16 decode steps through the decode graph with the routing
+     counters on, K18's launches (3 an expert layer a step) and the
+     counters against the routing, the replayed steps' logits bitwise
+     the eager body's
 
-Phases 4 to 8 each reset the kernels' launch counters just before they
+Phases 4 to 9 each reset the kernels' launch counters just before they
 drive their path (phase 8: each route's run) and read them just after.
 Then one JSON line of per-kernel results and, last, the result line.
 
 Usage: python3 chip_smoke.py [--layers N] [--qat-lr LR]
-(``--layers`` cuts the serving depth only; the default is the model's 36
-layers.  ``--qat-lr`` sets phase 6's Adam learning rate.)
+(``--layers`` cuts phases 4 and 5's serving depth only; the default is the
+model's 36 layers.  ``--qat-lr`` sets phase 6's Adam learning rate.)
 """
 from __future__ import annotations
 
@@ -128,6 +137,8 @@ KERNELS = {      # name: (source, the pl.pallas_call of the TPU kernel it replac
                         "qutlass_tpu/kernels/fused_linear.py:144"),
     "fused_linear_nv": ("qutlass_tpu_torch/csrc/fused_linear.cu",
                         "qutlass_tpu/kernels/fused_linear.py:144"),
+    # the grouped expert GEMM of LFM2's expert layer: no TPU kernel behind it
+    "gemm_fp4_experts": ("qutlass_tpu_torch/csrc/gemm_fp4_experts.cu", None),
 }
 # the H100 SXM's published peaks: HBM3 rate, dense bf16, fp8 and int8 tensor
 # cores, and fp32 and fp64 on the CUDA cores (printed beside a bound, never
@@ -1051,6 +1062,69 @@ NV_PATH = ("quantize_nv", "quantize_nv_int8", "gemm_int8_rank1", "gemm_fp4_nv",
            "gemm_fp4_nv_decode", "gemm_fp4_nv_prefill")
 
 
+LFM2_DECODE = (64, 4, 8)        # LFM2-24B-A2B's experts and top-k, a decode step of 8 tokens
+LFM2_EXPERT_KN = ((2048, 1536, True), (1536, 2048, False))  # (K, N, rows gathered): gate, down
+
+
+def compare_experts_kernel(torch, results: dict) -> None:
+    """K18, the grouped expert GEMM, at LFM2-24B-A2B's decode shapes: 8
+    tokens routed to the top 4 of 64 experts, the gate / up projection
+    (K, N) = (2048, 1536) reading the tokens' rows through ``rows``, the
+    down projection (1536, 2048) on the 32 routed rows; bitwise against
+    its plain version (K4's on each expert's rows), its routing counter
+    against the routing, and timed beside the bound of reading each
+    routed expert's weight once (and the rows' codes, scales and bf16
+    outputs) at the int8 peak."""
+    import qutlass_tpu_torch as qt
+    from qutlass_tpu_torch.kernels import gemm as G
+    from qutlass_tpu_torch.models import experts as X
+    from qutlass_tpu_torch.ops import dispatch
+    from qutlass_tpu_torch.ops import emulation as E
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    h = qt.hadamard_matrix(ROT, device=dev)
+    e, top, tokens = LFM2_DECODE
+    idx = torch.rand((tokens, e), generator=gen, device=dev).topk(top, dim=-1).indices
+    _, rows, offsets = X.dispatch(idx, e)
+    per_expert = offsets.diff().long()
+    active, r = int((per_expert > 0).sum()), tokens * top
+    for k, n, gathered in LFM2_EXPERT_KN:
+        w = (torch.randn((e, n, k), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+        st = X.quantize_stacked(w, h)
+        del w
+        x = torch.randn((tokens if gathered else r, k), generator=gen, device=dev)
+        xqt, xst = qt.fusedQuantizeMx(x.to(torch.bfloat16), h, method="quest", layout="kmajor")
+        rw = rows if gathered else None
+        counts = torch.zeros((2, e), dtype=torch.int64, device=dev)
+        before = dispatch.launch_counts["gemm_fp4_experts"]
+        y = G.gemm_fp4_experts(xqt, xst, st["wqt"], st["wst"], offsets, 1.0, rows=rw,
+                               max_rows=tokens, counts=counts)
+        want = E.gemm_fp4_experts_plain(xqt, xst, st["wqt"], st["wst"], offsets, 1.0, rows=rw)
+        shape = (r, k, n)
+        require(dispatch.launch_counts["gemm_fp4_experts"] == before + 1,
+                f"K18 did not run at {shape}")
+        require(torch.equal(counts, torch.stack([per_expert, (per_expert > 0).long()])),
+                f"K18's routing counter {counts.tolist()} is not the routing's at {shape}")
+        err = (y.float() - want.float()).abs().max().item()
+        require(err == 0.0 and torch.equal(y, want),
+                f"K18 differs from its plain version at {shape}: max_abs_err {err}")
+        ms = timed_ms(torch, lambda: G.gemm_fp4_experts(xqt, xst, st["wqt"], st["wst"], offsets,
+                                                        1.0, rows=rw, max_rows=tokens))
+        plain = timed_ms(torch, lambda: E.gemm_fp4_experts_plain(
+            xqt, xst, st["wqt"], st["wst"], offsets, 1.0, rows=rw), 3)
+        bnd = bound(active * (n * k // 2 + n * k // 32) + r * (k // 2 + k // 32) + 2 * r * n,
+                    2 * r * n * k, "int8")
+        res = results["gemm_fp4_experts"]
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if gathered:                       # the gate / up shape is the row's timed one
+            res.update(ms=ms, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+        print(f"phase 2 gemm_fp4_experts R,K,N={shape} experts={e} active={active} "
+              f"rows={'gathered' if gathered else 'in order'} max_abs_err={err} ms={ms:.4f} "
+              f"plain_ms={plain:.4f} bound_ms={bnd[0]:.6f} ({bnd[1]}) bitwise, routing counter "
+              f"equal")
+
+
 def sync_ms(torch, t0):
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
@@ -1587,6 +1661,91 @@ def fused_linear_phase(torch, trained) -> dict:
     return total
 
 
+LFM2_LAYERS = 6                 # phase 9's depth: 2 dense layers, then 4 expert layers
+LFM2_LENS = [256, 200, 160, 128, 96, 64, 17, 2]   # 2 is shorter than the conv window
+LFM2_STEPS = 16
+
+
+def serve_lfm2(torch) -> dict:
+    """Phase 9, LFM2-24B-A2B at its published widths, cut to its first
+    ``LFM2_LAYERS`` layers (short conv, attention at layer 2, K18 in the
+    expert layers): seeded weights quantized on the card, a ragged
+    prefill of 8 prompts, then ``LFM2_STEPS`` decode steps through the
+    decode graph (one capture, replays after) with the routing counters
+    on; K18's launches and the counters against the routing, and the
+    steps' logits bit for bit against the eager body on a second cache.
+    Returns the launch counts of the graphed run."""
+    import qutlass_tpu_torch as qt
+    from qutlass_tpu_torch import models as M
+    from qutlass_tpu_torch.models import experts as X
+    from qutlass_tpu_torch.models import serving as S
+    from qutlass_tpu_torch.ops import dispatch
+
+    base = M.LFM2_24B_A2B
+    cfg = dataclasses.replace(base, num_layers=LFM2_LAYERS,
+                              layer_types=base.layer_types[:LFM2_LAYERS])
+    moe_layers = sum(cfg.has_experts(i) for i in range(cfg.num_layers))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    h = qt.hadamard_matrix(ROT, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen, device=dev)
+    qp = M.quantize_model_weights(cfg, params, h, weight_format="fp4")
+    del params
+    X.count_routes(qp)
+    load_ms = sync_ms(torch, t0)
+    b, t = len(LFM2_LENS), max(LFM2_LENS)
+    lengths = torch.tensor(LFM2_LENS, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (b, t), generator=gen, device=dev)
+    prompt = prompt.masked_fill(torch.arange(t, device=dev)[None] >= lengths[:, None], 0)
+    max_len = t + LFM2_STEPS
+
+    def run(decode):
+        logits, cache = M.prefill(cfg, qp, prompt, h, max_len=max_len, quantized=True,
+                                  lengths=lengths)
+        tok, pos, out, times = logits.argmax(-1), lengths.clone(), [], []
+        for _ in range(LFM2_STEPS):
+            t1 = time.perf_counter()
+            logits, cache = decode(cfg, qp, cache, tok, pos, h, quantized=True)
+            times.append(sync_ms(torch, t1))
+            out.append(logits)
+            tok, pos = logits.argmax(-1), pos + 1
+        return out, times, cache
+
+    def eager(cfg, params, cache, tok, pos, h, quantized):
+        return S._decode(cfg, params, cache, tok, pos, h, quantized, "quest"), cache
+
+    dispatch.reset_launch_counts()
+    graphed, times, cache = run(M.decode_step)
+    torch.cuda.synchronize()
+    counts = dict(dispatch.launch_counts)
+    routed = torch.stack([layer["route_counts"] for layer in qp["layers"] if "router" in layer])
+    routed = routed.cpu()
+    want = 3 * moe_layers * LFM2_STEPS
+    require(counts["gemm_fp4_experts"] == want,
+            f"phase 9: K18 launched {counts['gemm_fp4_experts']} times, expected {want}")
+    require(S._GRAPHS.get(S._first_state(cache)) is not None, "phase 9: no decode graph")
+    require(routed[:, 0].sum(-1).tolist() == [b * cfg.experts_per_token * LFM2_STEPS] * moe_layers,
+            f"phase 9: routing counters count {routed[:, 0].sum(-1).tolist()} rows")
+    require(bool((routed[:, 1] <= LFM2_STEPS).all()) and bool((routed[:, 1] <= routed[:, 0]).all()),
+            "phase 9: a routing counter's active calls exceed its steps or rows")
+    plain, _, _ = run(eager)
+    for s_, (a, c) in enumerate(zip(graphed, plain)):
+        require(torch.equal(a, c), f"phase 9: replayed step {s_} differs from the eager body")
+    require(all(bool(torch.isfinite(a).all()) for a in graphed), "phase 9: non-finite logits")
+    active = routed[:, 1].sum().item() / (moe_layers * LFM2_STEPS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 9 LFM2-24B-A2B, {LFM2_LAYERS} of {base.num_layers} layers at full width "
+          f"({moe_layers} expert layers): weights drawn and quantized in {load_ms:.0f} ms; "
+          f"ragged prefill of {LFM2_LENS}, {LFM2_STEPS} decode steps through the decode graph, "
+          f"bitwise the eager body; K18 launches {counts['gemm_fp4_experts']} "
+          f"(3 a layer a step); {active:.2f} of {cfg.num_experts} experts active a layer a step; "
+          f"replayed steps {min(times[1:]):.2f}-{max(times[1:]):.2f} ms on the host clock "
+          f"(capture step {times[0]:.1f} ms); peak device memory {peak_gib:.2f} GiB")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=36)
@@ -1628,6 +1787,7 @@ def main() -> int:
     compare_qat_kernels(torch, results)
     compare_bwd_op_kernels(torch, results)
     compare_fused_linear_kernels(torch, results)
+    compare_experts_kernel(torch, results)
     from qutlass_tpu_torch.models import QWEN3_8B
     compare_k3(torch, results, QWEN3_8B.num_layers)
     quantizer_sums(torch, qtimes, QWEN3_8B.num_layers)
@@ -1638,7 +1798,8 @@ def main() -> int:
     test = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q",
                            "-p", "no:cacheprovider", "-W",
                            "ignore::pytest.PytestUnknownMarkWarning",
-                           "tests/test_torch_gpu.py", "tests/test_torch_decode_graph.py"],
+                           "tests/test_torch_gpu.py", "tests/test_torch_decode_graph.py",
+                           "tests/test_torch_lfm2_moe.py"],
                           cwd=ROOT, capture_output=True,
                           text=True, timeout=600)
     tail = test.stdout.strip().splitlines()[-1:] or [""]
@@ -1663,6 +1824,9 @@ def main() -> int:
     del layer1
     # phase 8: every kernel its counted runs launched counts
     for name, n in fused_linear_phase(torch, trained).items():
+        results[name]["launches"] += n
+    # phase 9: every kernel of its graphed run counts
+    for name, n in serve_lfm2(torch).items():
         results[name]["launches"] += n
 
     print(json.dumps({"kernels": list(results.values())}))

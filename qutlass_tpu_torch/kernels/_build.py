@@ -25,7 +25,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("quantize_mx.cu", "quantize_mx_int8.cu", "gemm_int8_rank1.cu",
            "gemm_fp4_mx.cu", "quantize_nv.cu", "quantize_nv_int8.cu",
            "gemm_fp4_nv.cu", "square_double.cu", "transpose_mxfp8.cu",
-           "gemm_fp8_mx.cu", "backward_quant.cu", "fused_linear.cu")
+           "gemm_fp8_mx.cu", "backward_quant.cu", "fused_linear.cu", "gemm_fp4_experts.cu")
 # no --use_fast_math: the scale math must round like the fp32 reference;
 # --fmad=false keeps nvcc from contracting a*b+c in it
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,6 +40,8 @@ _SIGNATURES = {
                            _I, _I, _P, _P, _I, _P],
     "qt_gemm_fp4_mx": [_P, _LL, _LL, _I, _P, _LL, _LL, _P, _LL, _LL, _I, _P,
                        _LL, _LL, _P, _F, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+    "qt_gemm_fp4_experts": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _I, _P, _LL, _LL, _P, _LL,
+                            _LL, _P, _F, _P, _I, _P, _I, _I, _I, _P],
     "qt_quantize_nv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _P],
     "qt_quantize_nv_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "qt_gemm_fp4_nv": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL,

@@ -1,6 +1,8 @@
 """Wrappers of the GEMM kernels K3 (``csrc/gemm_int8_rank1.cu``), K4
-(``csrc/gemm_fp4_mx.cu``), K7 (``csrc/gemm_fp4_nv.cu``) and K11
-(``csrc/gemm_fp8_mx.cu``).
+(``csrc/gemm_fp4_mx.cu``), K7 (``csrc/gemm_fp4_nv.cu``), K11
+(``csrc/gemm_fp8_mx.cu``) and K18 (``csrc/gemm_fp4_experts.cu``, the
+grouped MXFP4 GEMM of an expert layer: K4's decode arithmetic on each
+routed expert's rows, every expert in one launch).
 
 Each wrapper routes by device: tensors on the CPU go to the kernel's
 plain version (``*_plain``, in ``ops.emulation``), tensors on a CUDA
@@ -276,6 +278,77 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     _build.check(err, "gemm_fp4_mx")
     dispatch.note_launch("gemm_fp4_mx")
     dispatch.note_launch("gemm_fp4_mx_decode" if decode else "gemm_fp4_mx_prefill")
+    return c
+
+
+def gemm_fp4_experts(a: torch.Tensor, a_sf: torch.Tensor, b: torch.Tensor,
+                     b_sf: torch.Tensor, offsets: torch.Tensor, alpha, *,
+                     rows: torch.Tensor | None = None, max_rows: int,
+                     counts: torch.Tensor | None = None,
+                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Kernel K18: the grouped MXFP4 GEMM of an expert layer, every expert
+    in one launch.  Output row r of [offsets[e], offsets[e + 1]) is K4's
+    row of activation column ``rows[r]`` (r itself where ``rows`` is None)
+    against expert e's weight: C[r] = out_dtype((dq(a[:, rows[r]]) @
+    dq(b[e])^T) * alpha), the same bits.
+
+    ``a`` packed u8 [K/2, Ma] and ``a_sf`` [K/32, Ma] (K1's ``kmajor``
+    layout, any strides); ``b`` [E, K/2, N] and ``b_sf`` [E, K/32, N],
+    unit stride along N; ``offsets`` int32 [E + 1] and ``rows`` int32 [R]
+    on the device (R = Ma without ``rows``); rows outside [offsets[0],
+    offsets[E]) are not written.  ``max_rows`` bounds any expert's row
+    count (the kernel's row tile; more rows are taken in turns).  Blocks
+    of an expert without rows exit at once, so the launch reads only the
+    routed experts' weights, and nothing is read on the host: graph-safe.
+    ``alpha`` as for :func:`gemm_fp4_mx`.  ``counts``, a routing counter
+    int64 [2, E] beside the operands, gains each expert's row count (row
+    0) and 1 where it has rows (row 1) in the same launch.  On the CPU the
+    plain version (K4's on each expert's rows)."""
+    out_dtype = check_out_dtype(out_dtype)
+    ts = (a, a_sf, b, b_sf, offsets) + tuple(t for t in (rows, counts) if t is not None)
+    if not dispatch.on_cuda(*ts):
+        return _emu.gemm_fp4_experts_plain(a, a_sf, b, b_sf, offsets, alpha, rows=rows,
+                                           counts=counts, out_dtype=out_dtype)
+    for name, t, nd in (("a", a, 2), ("a_sf", a_sf, 2), ("b", b, 3), ("b_sf", b_sf, 3)):
+        if t.dtype != torch.uint8 or t.ndim != nd:
+            raise TypeError(f"{name} must be a {nd}-D uint8 tensor, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    (kh, ma), (e, kb, n) = a.shape, b.shape
+    k = 2 * kb
+    r = ma if rows is None else rows.shape[0]
+    if kh != kb or tuple(a_sf.shape) != (k // 32, ma) or tuple(b_sf.shape) != (e, k // 32, n):
+        raise ValueError(f"shapes do not agree: a {tuple(a.shape)}, a_sf {tuple(a_sf.shape)}, "
+                         f"b {tuple(b.shape)}, b_sf {tuple(b_sf.shape)}")
+    if k % 32 or min(r, n, k, max_rows) <= 0:
+        raise ValueError(f"K18 takes K % 32 == 0 and no empty operand; got R, N, K = "
+                         f"{r}, {n}, {k}, max_rows {max_rows}")
+    for name, t, ln in (("offsets", offsets, e + 1), ("rows", rows, r)):
+        if t is not None and (t.dtype != torch.int32 or tuple(t.shape) != (ln,)
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 [{ln}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if counts is not None and (counts.dtype != torch.int64 or tuple(counts.shape) != (2, e)
+                               or not counts.is_contiguous()):
+        raise ValueError(f"counts must be contiguous int64 [2, {e}], got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+    if b.stride(2) != 1 or b_sf.stride(2) != 1:
+        raise ValueError(f"K18 takes expert weights and scales of unit stride along N; got "
+                         f"b strides {b.stride()}, b_sf strides {b_sf.stride()}")
+    al = alpha_val = None
+    if isinstance(alpha, torch.Tensor) and alpha.device.type == "cuda":
+        al = alpha.reshape(()).to(device=a.device, dtype=torch.float32)
+    else:
+        alpha_val = _alpha_float(alpha)
+    c = torch.empty((r, n), dtype=out_dtype, device=a.device)
+    err = _build.library().qt_gemm_fp4_experts(
+        a.data_ptr(), a.stride(1), a.stride(0), a_sf.data_ptr(), a_sf.stride(1), a_sf.stride(0),
+        None if rows is None else rows.data_ptr(), offsets.data_ptr(), e,
+        b.data_ptr(), b.stride(0), b.stride(1), b_sf.data_ptr(), b_sf.stride(0), b_sf.stride(1),
+        None if al is None else al.data_ptr(), alpha_val or 0.0, c.data_ptr(),
+        int(out_dtype == torch.float32), None if counts is None else counts.data_ptr(), max_rows,
+        n, k, _stream(a))
+    _build.check(err, "gemm_fp4_experts")
+    dispatch.note_launch("gemm_fp4_experts")
     return c
 
 

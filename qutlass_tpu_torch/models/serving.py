@@ -11,6 +11,10 @@ the cache per layer per step; ``prefill`` always builds a fresh cache.
 
 A ragged decode step on the card is a CUDA graph of its cache: captured
 on the cache's first step, replayed on every later one (``decode_step``).
+
+The cache holds each layer's own state: keys and values (``k``, ``v``) of
+an attention layer, the last conv inputs (``conv``) of a short-conv layer
+(``models/shortconv.py``).
 """
 from __future__ import annotations
 
@@ -22,23 +26,30 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .. import utils
 from ..ops import dispatch
 from ..ops.dispatch import span
-from .transformer import (ModelConfig, _head_logits, _linear, _mlp, _rms_norm,
-                          _rope)
+from .shortconv import CONV_WIDTH
+from .transformer import ModelConfig, _head_logits, _layer, _linear, _rms_norm, _rope
 
-# the decode step's CUDA graph of each KV cache, keyed by the cache's
-# layer-0 ``k`` tensor: it and its memory pool go with the cache
+# the decode step's CUDA graph of each cache, keyed by the cache's first
+# state tensor: it and its memory pool go with the cache
 _GRAPHS = WeakIdKeyDictionary()
 _CAPTURE_STREAMS: dict = {}        # device -> the stream graphs are captured on
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
-    """Per-layer bf16 KV cache: k/v [B, max_len, kv_heads, head_dim], on
-    the card unless ``device`` says otherwise."""
+    """Per-layer state, zeros, on the card unless ``device`` says
+    otherwise: an attention layer's bf16 k/v [B, max_len, kv_heads,
+    head_dim], a short-conv layer's fp32 ``conv`` [B, CONV_WIDTH - 1,
+    hidden]."""
     device = utils.resolve_device(device)
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-             "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
-            for _ in range(cfg.num_layers)]
+
+    def state(i):
+        if cfg.mixer(i) == "conv":
+            return {"conv": torch.zeros((batch, CONV_WIDTH - 1, cfg.hidden_size),
+                                        dtype=torch.float32, device=device)}
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    return [state(i) for i in range(cfg.num_layers)]
 
 
 @span("qt.attend")
@@ -67,12 +78,22 @@ def _attend(cfg: ModelConfig, qh, kc, vc, pos_limit) -> torch.Tensor:
 
 
 def _block(cfg: ModelConfig, layer: dict, x: torch.Tensor, cache_l: dict,
-           start_pos, h, method: str, quantized: bool):
-    """One transformer block over x [B, T, D], writing the KV cache at
-    positions [start_pos, start_pos + T).  ``start_pos`` is an int, or a
-    [B] tensor for ragged decode (then T must be 1)."""
-    b, t, _ = x.shape
-    xin = _rms_norm(x, layer["input_norm"], cfg.rms_eps)
+           start_pos, h, method: str, quantized: bool, lengths=None):
+    """One transformer block over x [B, T, D], writing the layer's state:
+    the KV cache at positions [start_pos, start_pos + T), or the conv
+    state (each row's at ``lengths`` [B] in a ragged prefill).
+    ``start_pos`` is an int, or a [B] tensor for ragged decode (then T
+    must be 1)."""
+    def attention(layer, xin):
+        return _attention(cfg, layer, xin, cache_l, start_pos, h, method, quantized)
+    return _layer(cfg, layer, x, attention, cache_l.get("conv"), h, method, quantized,
+                  lengths), cache_l
+
+
+def _attention(cfg: ModelConfig, layer: dict, xin: torch.Tensor, cache_l: dict,
+               start_pos, h, method: str, quantized: bool) -> torch.Tensor:
+    """The attention mixer over the normed xin [B, T, D], through o_proj."""
+    b, t, _ = xin.shape
     qh = _linear(xin, layer["q_proj"], h, method, quantized)
     kh = _linear(xin, layer["k_proj"], h, method, quantized)
     vh = _linear(xin, layer["v_proj"], h, method, quantized)
@@ -82,7 +103,7 @@ def _block(cfg: ModelConfig, layer: dict, x: torch.Tensor, cache_l: dict,
     if cfg.qk_norm:
         qh = _rms_norm(qh, layer["q_norm"], cfg.rms_eps)
         kh = _rms_norm(kh, layer["k_norm"], cfg.rms_eps)
-    offsets = torch.arange(t, device=x.device)
+    offsets = torch.arange(t, device=xin.device)
     dense = isinstance(start_pos, int)
     positions = start_pos + offsets if dense else start_pos[:, None] + offsets
     qh = _rope(qh, positions, cfg.rope_theta)
@@ -91,14 +112,12 @@ def _block(cfg: ModelConfig, layer: dict, x: torch.Tensor, cache_l: dict,
         cache_l["k"][:, start_pos:start_pos + t] = kh
         cache_l["v"][:, start_pos:start_pos + t] = vh
     else:                                  # ragged decode: one row each
-        rows = torch.arange(b, device=x.device)
+        rows = torch.arange(b, device=xin.device)
         cache_l["k"][rows, start_pos] = kh[:, 0]
         cache_l["v"][rows, start_pos] = vh[:, 0]
     attn = _attend(cfg, qh, cache_l["k"], cache_l["v"], start_pos + t)
     attn = attn.reshape(b, t, cfg.num_heads * cfg.head_dim)
-    x = x + _linear(attn, layer["o_proj"], h, method, quantized)
-    xin = _rms_norm(x, layer["post_attn_norm"], cfg.rms_eps)
-    return x + _mlp(xin, layer, h, method, quantized), cache_l
+    return _linear(attn, layer["o_proj"], h, method, quantized)
 
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -116,13 +135,14 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, h=None, *,
     ``lengths`` [B] enables ragged batches: prompts are right-padded to
     T and each row's logits are read at ``lengths[b] - 1``; the pad
     positions' cache slots are overwritten by decode before any query
-    attends to them.
+    attends to them, and a conv layer keeps each row's inputs before
+    ``lengths[b]``.
     """
     b, _ = tokens.shape
     cache = init_cache(cfg, b, max_len, tokens.device)
     x = params["embed"][tokens]
     for layer, cache_l in zip(params["layers"], cache):
-        x, _ = _block(cfg, layer, x, cache_l, 0, h, method, quantized)
+        x, _ = _block(cfg, layer, x, cache_l, 0, h, method, quantized, lengths)
     last = (x[:, -1] if lengths is None
             else x[torch.arange(b, device=x.device), lengths - 1])
     return _logits(cfg, params, last), cache
@@ -151,9 +171,15 @@ class _Graph:
     launches: dict
 
 
+def _first_state(cache: list) -> torch.Tensor:
+    """The cache's first state tensor, whatever its layer's kind: it keys
+    the cache's graph."""
+    return next(iter(cache[0].values()))
+
+
 def _graph_key(cfg, cache, token, pos, h, quantized, method) -> tuple:
     return (cfg, None if h is None else h.data_ptr(), token.shape[0], quantized, method,
-            token.dtype, pos.dtype, tuple(t.data_ptr() for c in cache for t in (c["k"], c["v"])))
+            token.dtype, pos.dtype, tuple(t.data_ptr() for c in cache for t in c.values()))
 
 
 @span("qt.graph_capture")
@@ -209,14 +235,15 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list, token, pos, h=None,
     ``method``, the inputs' dtypes or the cache's tensors captures anew.
     An int ``pos`` and CPU tensors run eagerly."""
     args = (cfg, params, cache, token, pos, h, quantized, method)
+    first = _first_state(cache)
     if not (isinstance(pos, torch.Tensor) and pos.ndim == 1
-            and all(t.is_cuda for t in (token, pos, cache[0]["k"], params["embed"]))
+            and all(t.is_cuda for t in (token, pos, first, params["embed"]))
             and not torch.cuda.is_current_stream_capturing()):
         return _decode(*args), cache
     key = _graph_key(cfg, cache, token, pos, h, quantized, method)
-    entry = _GRAPHS.get(cache[0]["k"])
+    entry = _GRAPHS.get(first)
     if entry is None or entry.key != key or entry.params is not params:
-        logits, _GRAPHS[cache[0]["k"]] = _capture(*args, key)
+        logits, _GRAPHS[first] = _capture(*args, key)
         return logits, cache
     return _replay(entry, token, pos), cache
 

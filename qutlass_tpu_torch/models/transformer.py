@@ -1,6 +1,11 @@
 """Decoder-only transformer family (Qwen3 / Llama-3.1 geometries) with
 MXFP4 or NVFP4 W4A4 quantized linear layers (counterpart of
-``qutlass_tpu.models.transformer``, dense serving routes).
+``qutlass_tpu.models.transformer``, dense serving routes), and LFM2-MoE's
+hybrid (``LFM2_24B_A2B``): gated short-conv layers (``models/shortconv.py``)
+beside attention layers, a dropless sigmoid-routed expert layer
+(``models/experts.py``) after the leading dense ones.  A layer's dict names
+its parts: ``in_proj`` a short-conv mixer, else attention; ``router`` an
+expert layer, else the dense SwiGLU MLP.
 
 Parameters are a dict mirroring the JAX pytree (HF-style names), so
 weights convert one to one (``models/convert.py``).  Quantized
@@ -22,8 +27,11 @@ import torch
 
 from .. import utils
 from ..nn import linear as _lin
-from ..nn.linear import quantize_weight, quantized_linear
+from ..nn.linear import linear as _linear
+from ..nn.linear import quantize_weight
 from ..ops.dispatch import span
+from . import experts as _experts
+from .shortconv import CONV_WIDTH, short_conv
 
 # The attention einsums and rotations are fp32 reference math: no TF32.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -31,6 +39,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                "up_proj", "down_proj")
+CONV_PROJECTIONS = ("in_proj", "out_proj")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +57,20 @@ class ModelConfig:
     tie_embeddings: bool = False
     # each query attends only the last ``sliding_window`` positions
     sliding_window: int | None = None
+    # each layer's mixer, "attention" or "conv" (None: every layer attention)
+    layer_types: tuple[str, ...] | None = None
+    # experts on the layers from ``num_dense_layers`` on (0: every layer
+    # dense), routed as LFM2-MoE routes them (``models/experts.py``)
+    num_experts: int = 0
+    experts_per_token: int = 0
+    expert_width: int = 0
+    num_dense_layers: int = 0
+
+    def mixer(self, i: int) -> str:
+        return "attention" if self.layer_types is None else self.layer_types[i]
+
+    def has_experts(self, i: int) -> bool:
+        return self.num_experts > 0 and i >= self.num_dense_layers
 
 
 QWEN3_8B = ModelConfig()
@@ -63,6 +86,16 @@ LLAMA31_70B = ModelConfig(vocab_size=128_256, hidden_size=8192,
                           intermediate_size=28_672, num_layers=80,
                           num_heads=64, num_kv_heads=8, head_dim=128,
                           rope_theta=500_000.0, qk_norm=False)
+# LiquidAI/LFM2-24B-A2B (model_type lfm2_moe): attention at layers 2, 6, ..,
+# 38, short conv elsewhere; 2 dense layers, then 64 experts, top 4; tied head
+LFM2_24B_A2B = ModelConfig(vocab_size=65_536, hidden_size=2048, intermediate_size=11_776,
+                           num_layers=40, num_heads=32, num_kv_heads=8, head_dim=64,
+                           rope_theta=1_000_000.0, rms_eps=1e-5, qk_norm=True,
+                           tie_embeddings=True,
+                           layer_types=tuple("attention" if i % 4 == 2 else "conv"
+                                             for i in range(40)),
+                           num_experts=64, experts_per_token=4, expert_width=1536,
+                           num_dense_layers=2)
 
 
 def tiny_config(**kw) -> ModelConfig:
@@ -100,22 +133,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     def ones(n):
         return torch.ones((n,), dtype=dtype, device=device)
 
+    d = cfg.hidden_size
     qd = cfg.num_heads * cfg.head_dim
     kvd = cfg.num_kv_heads * cfg.head_dim
     layers = []
-    for _ in range(cfg.num_layers):
-        layer = {
-            "input_norm": ones(cfg.hidden_size),
-            "post_attn_norm": ones(cfg.hidden_size),
-            "q_proj": dense(qd, cfg.hidden_size),
-            "k_proj": dense(kvd, cfg.hidden_size),
-            "v_proj": dense(kvd, cfg.hidden_size),
-            "o_proj": dense(cfg.hidden_size, qd),
-            "gate_proj": dense(cfg.intermediate_size, cfg.hidden_size),
-            "up_proj": dense(cfg.intermediate_size, cfg.hidden_size),
-            "down_proj": dense(cfg.hidden_size, cfg.intermediate_size),
-        }
-        if cfg.qk_norm:
+    for i in range(cfg.num_layers):
+        layer = {"input_norm": ones(d), "post_attn_norm": ones(d)}
+        if cfg.mixer(i) == "conv":
+            layer.update(in_proj=dense(3 * d, d), out_proj=dense(d, d),
+                         conv=normal((d, CONV_WIDTH), CONV_WIDTH ** -0.5))
+        else:
+            layer.update(q_proj=dense(qd, d), k_proj=dense(kvd, d), v_proj=dense(kvd, d),
+                         o_proj=dense(d, qd))
+        if cfg.has_experts(i):
+            e, f = cfg.num_experts, cfg.expert_width
+            layer["router"] = dense(e, d)
+            layer["expert_bias"] = normal((e,), 0.05).to(torch.float32)
+            layer["experts"] = {"gate_proj": normal((e, f, d), d ** -0.5),
+                                "up_proj": normal((e, f, d), d ** -0.5),
+                                "down_proj": normal((e, d, f), f ** -0.5)}
+        else:
+            layer.update(gate_proj=dense(cfg.intermediate_size, d),
+                         up_proj=dense(cfg.intermediate_size, d),
+                         down_proj=dense(d, cfg.intermediate_size))
+        if cfg.qk_norm and cfg.mixer(i) == "attention":
             layer["q_norm"] = ones(cfg.head_dim)
             layer["k_norm"] = ones(cfg.head_dim)
         layers.append(layer)
@@ -131,17 +172,25 @@ def quantize_model_weights(cfg: ModelConfig, params: dict, h: torch.Tensor,
                            weight_format: str = "int8") -> dict:
     """Pre-quantize every linear weight to MXFP4 (``fmt="mx"``) or to the
     two-level NVFP4 scheme (``fmt="nv"``, a global scale per weight);
-    see :func:`quantize_weight` for ``weight_format``.  The lm head stays
-    bf16.  Returns a new dict; the bf16 weights of ``params`` are not
-    kept by it."""
+    see :func:`quantize_weight` for ``weight_format``.  The lm head, the
+    router, the conv taps and the expert bias stay as they are.  Expert
+    weights are stacked packed fp4 whatever ``weight_format`` says, MXFP4
+    only (``experts.quantize_stacked``).  Returns a new dict; the bf16
+    weights of ``params`` are not kept by it."""
     del cfg
     out = dict(params)
     out["layers"] = []
     for layer in params["layers"]:
         ql = dict(layer)
-        for name in PROJECTIONS:
-            ql[name] = quantize_weight(layer[name], h=h, method=method, fmt=fmt,
-                                       weight_format=weight_format)
+        for name in PROJECTIONS + CONV_PROJECTIONS:
+            if name in layer:
+                ql[name] = quantize_weight(layer[name], h=h, method=method, fmt=fmt,
+                                           weight_format=weight_format)
+        if "experts" in layer:
+            if fmt != "mx":
+                raise ValueError(f"the expert kernel takes MXFP4 weights, not fmt={fmt!r}")
+            ql["experts"] = {n: _experts.quantize_stacked(w, h, method)
+                             for n, w in layer["experts"].items()}
         out["layers"].append(ql)
     return out
 
@@ -216,14 +265,6 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
                      dim=-1).to(x.dtype)
 
 
-def _linear(x: torch.Tensor, w, h: torch.Tensor, method: str,
-            quantized: bool) -> torch.Tensor:
-    """Apply a (possibly quantized) linear to [..., K]."""
-    if not quantized:
-        return (x.to(torch.float32) @ w.to(torch.float32).T).to(x.dtype)
-    return quantized_linear(x, w, h, method)
-
-
 def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """bf16 hidden states x lm head -> fp32 logits (fp32 accumulation)."""
     return x.to(torch.float32) @ head.to(torch.float32).T
@@ -251,6 +292,23 @@ def _mlp(x: torch.Tensor, layer: dict, h, method, quantized) -> torch.Tensor:
     return _linear(act, layer["down_proj"], h, method, quantized)
 
 
+def _layer(cfg: ModelConfig, layer: dict, x: torch.Tensor, attention, conv_state, h, method,
+           quantized, lengths=None) -> torch.Tensor:
+    """One layer over x [B, T, D]: x + mixer(norm(x)), then + its experts
+    or its dense MLP over the norm of that.  The mixer is the short conv
+    where the layer has one (its state ``conv_state`` and ``lengths`` as
+    :func:`short_conv` takes them), else ``attention(layer, xin)``."""
+    xin = _rms_norm(x, layer["input_norm"], cfg.rms_eps)
+    if "in_proj" in layer:
+        x = x + short_conv(layer, xin, conv_state, h, method, quantized, lengths)
+    else:
+        x = x + attention(layer, xin)
+    xin = _rms_norm(x, layer["post_attn_norm"], cfg.rms_eps)
+    if "router" in layer:
+        return x + _experts.moe(cfg, layer, xin, h, method, quantized)
+    return x + _mlp(xin, layer, h, method, quantized)
+
+
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             h: torch.Tensor | None = None, *, quantized: bool = False,
@@ -268,8 +326,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     if cfg.sliding_window:
         causal &= positions[None, :] > positions[:, None] - cfg.sliding_window
 
-    for layer in params["layers"]:
-        xin = _rms_norm(x, layer["input_norm"], cfg.rms_eps)
+    def attention(layer, xin):
         qh = _linear(xin, layer["q_proj"], h, method, quantized)
         kh = _linear(xin, layer["k_proj"], h, method, quantized)
         vh = _linear(xin, layer["v_proj"], h, method, quantized)
@@ -281,15 +338,16 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             kh = _rms_norm(kh, layer["k_norm"], cfg.rms_eps)
         qh = _rope(qh, positions, cfg.rope_theta)
         kh = _rope(kh, positions, cfg.rope_theta)
-        attn = _prefill_attention(cfg, qh, kh, vh, causal).to(x.dtype)
-        x = x + _linear(attn, layer["o_proj"], h, method, quantized)
-        xin = _rms_norm(x, layer["post_attn_norm"], cfg.rms_eps)
-        x = x + _mlp(xin, layer, h, method, quantized)
+        attn = _prefill_attention(cfg, qh, kh, vh, causal).to(xin.dtype)
+        return _linear(attn, layer["o_proj"], h, method, quantized)
+
+    for layer in params["layers"]:
+        x = _layer(cfg, layer, x, attention, None, h, method, quantized)
 
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _head_logits(x, params.get("lm_head", params["embed"]))
 
 
 __all__ = ["ModelConfig", "QWEN3_8B", "QWEN3_14B", "QWEN3_32B", "LLAMA31_8B",
-           "LLAMA31_70B", "tiny_config", "init_params", "quantize_weight",
+           "LLAMA31_70B", "LFM2_24B_A2B", "tiny_config", "init_params", "quantize_weight",
            "quantize_model_weights", "calibrate_nv_gsx", "forward"]

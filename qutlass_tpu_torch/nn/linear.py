@@ -156,6 +156,15 @@ def quantized_linear(x: torch.Tensor, w: Mapping, h: torch.Tensor,
     return nv_linear(x, w, h) if "gs" in w else mx_linear(x, w, h, method)
 
 
+def linear(x: torch.Tensor, w, h: torch.Tensor, method: str,
+           quantized: bool) -> torch.Tensor:
+    """Apply a stored quantized weight (``quantized``) or a bf16 weight
+    [N, K] (an fp32 product) to x [..., K]."""
+    if not quantized:
+        return (x.to(torch.float32) @ w.to(torch.float32).T).to(x.dtype)
+    return quantized_linear(x, w, h, method)
+
+
 class QuantizedLinear(nn.Module):
     """W4A4 linear (MXFP4 or NVFP4) holding its quantized weight as
     buffers.

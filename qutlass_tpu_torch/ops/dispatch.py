@@ -12,7 +12,8 @@ which kernels its main path went through.  ``gemm_fp4_mx`` counts every
 launch of K4, ``gemm_fp4_mx_decode`` and ``gemm_fp4_mx_prefill`` those
 that ran its decode or its prefill kernel; ``gemm_fp4_nv`` counts every
 launch of K7, ``gemm_fp4_nv_decode`` and ``gemm_fp4_nv_prefill`` those that
-ran its decode or its prefill kernel.
+ran its decode or its prefill kernel; ``gemm_fp4_experts`` counts K18, the
+grouped expert GEMM (one launch a projection of an expert layer).
 
 ``span(name)`` decorates a function of the serving path: while a torch
 profiler records, each call is a ``record_function(name)`` range on the
@@ -23,7 +24,9 @@ The ranges live only in the profile's memory.  A span makes no CUDA call,
 so it is harmless under CUDA-graph capture.  The spans, outermost first:
 ``qt.decode_step`` / ``qt.prefill`` (``models.serving``), in them
 ``qt.attend``, ``qt.rope`` and ``qt.linear`` (``nn.linear.quantized_linear``,
-the activation's quantize and the GEMM).  A ragged decode step on the card
+the activation's quantize and the GEMM), and in LFM2's layers ``qt.conv``
+(``models.shortconv``: the short-conv mixer, its projections included) and
+``qt.moe`` (``models.experts``: router, dispatch, experts, combine).  A ragged decode step on the card
 holds ``qt.graph_capture`` (a cache's first step: its eager run, then the
 CUDA graph's capture) or ``qt.graph_replay`` (every later step: no other
 span runs in it).  A replay adds the launches its capture noted.
@@ -44,7 +47,8 @@ KERNELS = ("quantize_mx", "quantize_mx_int8", "gemm_int8_rank1",
            "quantize_nv_int8", "gemm_fp4_nv", "gemm_fp4_nv_decode", "gemm_fp4_nv_prefill",
            "square_double_scaled", "square_double_mxfp8", "mxfp4_transpose_mxfp8",
            "gemm_fp8_mx", "backward_t_bf16", "backward_qt_bf16", "mxfp4_transpose_scaled",
-           "mxfp4_transpose_scaled_kmajor", "fused_linear_mx", "fused_linear_nv")
+           "mxfp4_transpose_scaled_kmajor", "fused_linear_mx", "fused_linear_nv",
+           "gemm_fp4_experts")
 
 launch_counts: dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -277,6 +277,29 @@ def matmul_mxf4_bf16_kmajor_codes(at, bt, a_sft, b_sft, alpha, out_dtype=torch.b
                              alpha, out_dtype)
 
 
+def gemm_fp4_experts_plain(a, a_sf, b, b_sf, offsets, alpha, *, rows=None, counts=None,
+                           out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of K18, the grouped expert GEMM: output rows
+    [offsets[e], offsets[e + 1]) are ``matmul_mxf4_bf16_kmajor`` of the
+    activation columns ``rows[r]`` (r itself where ``rows`` is None) of a
+    [K/2, Ma] / a_sf [K/32, Ma] against expert e's b[e] [K/2, N] / b_sf[e]
+    [K/32, N]; rows no expert owns are zero.  ``counts`` [2, E] int64
+    gains each expert's row count and whether it has any."""
+    r = a.shape[1] if rows is None else rows.shape[0]
+    cols = torch.arange(r, device=a.device) if rows is None else rows.to(torch.int64)
+    out = torch.zeros((r, b.shape[2]), dtype=check_out_dtype(out_dtype), device=a.device)
+    off = offsets.tolist()
+    if counts is not None:
+        n = offsets.diff().to(torch.int64)
+        counts += torch.stack([n, (n > 0).to(torch.int64)])
+    for e in range(b.shape[0]):
+        s, t = off[e], off[e + 1]
+        if t > s:
+            out[s:t] = matmul_mxf4_bf16_kmajor(a[:, cols[s:t]], b[e], a_sf[:, cols[s:t]],
+                                               b_sf[e], alpha, out_dtype)
+    return out
+
+
 def gemm_fp4_mx_groupfold_plain(a, b, a_sf, b_sf, alpha, *, layout: str,
                                 out_dtype=torch.bfloat16) -> torch.Tensor:
     """The arithmetic of K4 and K16, operands as for ``matmul_mxf4_bf16_tn``

@@ -30,7 +30,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      gate / up and down), bitwise, its routing counter against the
      routing, timed beside the bound of reading each routed expert once
   3. the ``gpu``-marked tests, ``tests/test_torch_gpu.py``,
-     ``tests/test_torch_decode_graph.py`` and ``tests/test_torch_lfm2_moe.py``
+     ``tests/test_torch_decode_graph.py``, ``tests/test_torch_lfm2_moe.py``
+     and ``tests/test_torch_kv_cache.py``
   4. MXFP4 serving: four ragged requests at Qwen3-8B width (seeded
      random weights, quantized on the card), 32 greedy tokens with the
      weights stored as int8 (the default), checked against a
@@ -1799,7 +1800,7 @@ def main() -> int:
                            "-p", "no:cacheprovider", "-W",
                            "ignore::pytest.PytestUnknownMarkWarning",
                            "tests/test_torch_gpu.py", "tests/test_torch_decode_graph.py",
-                           "tests/test_torch_lfm2_moe.py"],
+                           "tests/test_torch_lfm2_moe.py", "tests/test_torch_kv_cache.py"],
                           cwd=ROOT, capture_output=True,
                           text=True, timeout=600)
     tail = test.stdout.strip().splitlines()[-1:] or [""]

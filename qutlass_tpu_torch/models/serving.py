@@ -1,5 +1,5 @@
 """Serving harness: KV-cache prefill + autoregressive decode (counterpart
-of ``qutlass_tpu.models.serving``, bf16 cache).
+of ``qutlass_tpu.models.serving``, whose cache is bf16).
 
 ``generate`` is a host loop with the semantics of the JAX package's
 dispatch loop: prefill, then one decode step per emitted token, every
@@ -14,7 +14,10 @@ on the cache's first step, replayed on every later one (``decode_step``).
 
 The cache holds each layer's own state: keys and values (``k``, ``v``) of
 an attention layer, the last conv inputs (``conv``) of a short-conv layer
-(``models/shortconv.py``).
+(``models/shortconv.py``).  Keys and values are the bf16 values of the
+projections, held in fp32 and laid out as attention's two batched GEMMs
+read them (``init_cache``), so ``_attend`` hands cuBLAS the cache itself:
+no upcast and no copy of it in a step.
 """
 from __future__ import annotations
 
@@ -36,34 +39,40 @@ _CAPTURE_STREAMS: dict = {}        # device -> the stream graphs are captured on
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
-    """Per-layer state, zeros, on the card unless ``device`` says
-    otherwise: an attention layer's bf16 k/v [B, max_len, kv_heads,
-    head_dim], a short-conv layer's fp32 ``conv`` [B, CONV_WIDTH - 1,
-    hidden]."""
+    """Per-layer state, fp32 zeros, on the card unless ``device`` says
+    otherwise: an attention layer's k [B, kv_heads, head_dim, max_len] and
+    v [B, kv_heads, max_len, head_dim], a short-conv layer's ``conv``
+    [B, CONV_WIDTH - 1, hidden].
+
+    k and v hold bf16 values exactly.  Their layouts are the operands of
+    ``_attend``'s two batched GEMMs, batch (b, kv head) outermost: k as
+    the scores' [D, L] factor, v as the output's [L, D] factor.  k in v's
+    layout would reach the GEMM transposed, which sums in another order."""
     device = utils.resolve_device(device)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    g, d = cfg.num_kv_heads, cfg.head_dim
 
     def state(i):
         if cfg.mixer(i) == "conv":
             return {"conv": torch.zeros((batch, CONV_WIDTH - 1, cfg.hidden_size),
                                         dtype=torch.float32, device=device)}
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+        return {"k": torch.zeros((batch, g, d, max_len), dtype=torch.float32, device=device),
+                "v": torch.zeros((batch, g, max_len, d), dtype=torch.float32, device=device)}
     return [state(i) for i in range(cfg.num_layers)]
 
 
 @span("qt.attend")
 def _attend(cfg: ModelConfig, qh, kc, vc, pos_limit) -> torch.Tensor:
-    """q [B, T, H, D] against cache k/v [B, L, KVH, D], masked to
-    positions < pos_limit + per-query causality offset (and to the
-    sliding window).  ``pos_limit``: int, or [B] for ragged batches."""
+    """q [B, T, H, D] against the fp32 cache, k [B, KVH, D, L] and v
+    [B, KVH, L, D] (``init_cache``), masked to positions < pos_limit +
+    per-query causality offset (and to the sliding window).
+    ``pos_limit``: int, or [B] for ragged batches."""
     b, t = qh.shape[0], qh.shape[1]
-    l = kc.shape[1]
+    l = kc.shape[-1]
     dev = qh.device
     rep = cfg.num_heads // cfg.num_kv_heads
     q5 = qh.reshape(b, t, cfg.num_kv_heads, rep, cfg.head_dim)
     scores = torch.einsum("btgrd,bsgd->bgrts", q5.to(torch.float32),
-                          kc.to(torch.float32)) * (cfg.head_dim ** -0.5)
+                          kc.permute(0, 3, 1, 2)) * (cfg.head_dim ** -0.5)
     pl = torch.as_tensor(pos_limit, device=dev)
     qpos = pl[..., None] - t + torch.arange(t, device=dev)   # [t] or [B, t]
     qpos = qpos.expand(b, t)
@@ -73,7 +82,7 @@ def _attend(cfg: ModelConfig, qh, kc, vc, pos_limit) -> torch.Tensor:
         mask &= spos[None, None, :] > qpos[:, :, None] - cfg.sliding_window
     scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrts,bsgd->btgrd", probs, vc.to(torch.float32))
+    out = torch.einsum("bgrts,bsgd->btgrd", probs, vc.permute(0, 2, 1, 3))
     return out.reshape(b, t, cfg.num_heads, cfg.head_dim).to(torch.bfloat16)
 
 
@@ -109,12 +118,12 @@ def _attention(cfg: ModelConfig, layer: dict, xin: torch.Tensor, cache_l: dict,
     qh = _rope(qh, positions, cfg.rope_theta)
     kh = _rope(kh, positions, cfg.rope_theta)
     if dense:
-        cache_l["k"][:, start_pos:start_pos + t] = kh
-        cache_l["v"][:, start_pos:start_pos + t] = vh
+        cache_l["k"][..., start_pos:start_pos + t] = kh.permute(0, 2, 3, 1)
+        cache_l["v"][:, :, start_pos:start_pos + t] = vh.transpose(1, 2)
     else:                                  # ragged decode: one row each
-        rows = torch.arange(b, device=xin.device)
-        cache_l["k"][rows, start_pos] = kh[:, 0]
-        cache_l["v"][rows, start_pos] = vh[:, 0]
+        rows = torch.arange(b, device=xin.device)   # index_put_ takes one dtype: cast the rows
+        cache_l["k"][rows, :, :, start_pos] = kh[:, 0].to(torch.float32)
+        cache_l["v"][rows, :, start_pos] = vh[:, 0].to(torch.float32)
     attn = _attend(cfg, qh, cache_l["k"], cache_l["v"], start_pos + t)
     attn = attn.reshape(b, t, cfg.num_heads * cfg.head_dim)
     return _linear(attn, layer["o_proj"], h, method, quantized)

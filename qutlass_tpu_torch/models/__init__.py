@@ -3,10 +3,9 @@ short-conv and attention layers with a dropless expert layer) and serving
 harness on the MXFP4 and NVFP4 W4A4 paths, and the loader of the QAT
 example's weights."""
 from .convert import params_from_numpy, quartet_mlp_from_numpy, tensor_from_numpy
-from .serving import (decode_step, generate, init_cache, prefill,
-                      sample_logits)
+from .serving import decode_step, generate, prefill, sample_logits
 from .transformer import (LFM2_24B_A2B, LLAMA31_8B, LLAMA31_70B, QWEN3_8B, QWEN3_14B,
-                          QWEN3_32B, ModelConfig, calibrate_nv_gsx, forward,
+                          QWEN3_32B, ModelConfig, calibrate_nv_gsx, forward, init_cache,
                           init_params, quantize_model_weights, quantize_weight,
                           tiny_config)
 

@@ -40,6 +40,7 @@ import torch
 
 import qutlass_tpu_torch as q
 from ..kernels.gemm import DECODE_M, gemm_fp4_experts
+from ..nn.linear import mx_alpha
 from ..ops.dispatch import span
 
 
@@ -101,11 +102,6 @@ def count_routes(params: dict) -> None:
                                                 dtype=torch.int64, device=layer["router"].device)
 
 
-def _alpha(w: dict, method: str) -> float:
-    """The dequant constant of an MX linear (``nn.linear.mx_linear``)."""
-    return (1.0 if method == "quest" else 1 / 3) * (1 / 3 if "am" in w else 1.0)
-
-
 def _per_expert(xqt, xst, w: dict, rows, offsets: list, alpha: float) -> torch.Tensor:
     """The expert GEMM of a prefill: K4 on each routed expert's rows
     (``offsets`` read on the host); ``rows`` None means row r is column r."""
@@ -137,13 +133,13 @@ def moe(cfg, layer: dict, x: torch.Tensor, h: torch.Tensor, method: str,
     xqt, xst = q.fusedQuantizeMx(x2, h, method=method, layout="kmajor")
     if t <= DECODE_M or (x.is_cuda and torch.cuda.is_current_stream_capturing()):
         def gemm(aq, asf, wt, r, counts=None):
-            return gemm_fp4_experts(aq, asf, wt["wqt"], wt["wst"], offsets, _alpha(wt, method),
+            return gemm_fp4_experts(aq, asf, wt["wqt"], wt["wst"], offsets, mx_alpha(wt, method),
                                     rows=r, max_rows=t, counts=counts)
     else:
         host = offsets.tolist()                       # the one host read of a prefill layer
 
         def gemm(aq, asf, wt, r, counts=None):        # a prefill leaves the counter
-            return _per_expert(aq, asf, wt, r, host, _alpha(wt, method))
+            return _per_expert(aq, asf, wt, r, host, mx_alpha(wt, method))
     gate = gemm(xqt, xst, ex["gate_proj"], rows, layer.get("route_counts"))
     up = gemm(xqt, xst, ex["up_proj"], rows)
     act = (torch.nn.functional.silu(gate.to(torch.float32))

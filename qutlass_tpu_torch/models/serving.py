@@ -5,19 +5,19 @@ of ``qutlass_tpu.models.serving``, whose cache is bf16).
 dispatch loop: prefill, then one decode step per emitted token, every
 projection on its stored W4A4 path (MXFP4 or NVFP4, chosen by the
 stored leaves in ``transformer._linear``) when ``quantized``.  Unlike
-the JAX package, the KV cache is updated IN PLACE (``_block`` writes
-into the cache tensors and returns the same dict), which saves a copy of
+the JAX package, the cache is updated IN PLACE (``transformer._layer``
+writes each layer's state into the cache tensors), which saves a copy of
 the cache per layer per step; ``prefill`` always builds a fresh cache.
 
 A ragged decode step on the card is a CUDA graph of its cache: captured
 on the cache's first step, replayed on every later one (``decode_step``).
 
-The cache holds each layer's own state: keys and values (``k``, ``v``) of
-an attention layer, the last conv inputs (``conv``) of a short-conv layer
-(``models/shortconv.py``).  Keys and values are the bf16 values of the
-projections, held in fp32 and laid out as attention's two batched GEMMs
-read them (``init_cache``), so ``_attend`` hands cuBLAS the cache itself:
-no upcast and no copy of it in a step.
+The cache (``transformer.init_cache``) holds each layer's own state: keys
+and values (``k``, ``v``) of an attention layer, the last conv inputs
+(``conv``) of a short-conv layer (``models/shortconv.py``).  Keys and
+values are the bf16 values of the projections, held in fp32 and laid out
+as attention's two batched GEMMs read them, so ``transformer._attend``
+hands cuBLAS the cache itself: no upcast and no copy of it in a step.
 """
 from __future__ import annotations
 
@@ -26,112 +26,14 @@ import dataclasses
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from .. import utils
 from ..ops import dispatch
 from ..ops.dispatch import span
-from .shortconv import CONV_WIDTH
-from .transformer import ModelConfig, _head_logits, _layer, _linear, _rms_norm, _rope
+from .transformer import ModelConfig, _layer, _logits, init_cache
 
 # the decode step's CUDA graph of each cache, keyed by the cache's first
 # state tensor: it and its memory pool go with the cache
 _GRAPHS = WeakIdKeyDictionary()
 _CAPTURE_STREAMS: dict = {}        # device -> the stream graphs are captured on
-
-
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
-    """Per-layer state, fp32 zeros, on the card unless ``device`` says
-    otherwise: an attention layer's k [B, kv_heads, head_dim, max_len] and
-    v [B, kv_heads, max_len, head_dim], a short-conv layer's ``conv``
-    [B, CONV_WIDTH - 1, hidden].
-
-    k and v hold bf16 values exactly.  Their layouts are the operands of
-    ``_attend``'s two batched GEMMs, batch (b, kv head) outermost: k as
-    the scores' [D, L] factor, v as the output's [L, D] factor.  k in v's
-    layout would reach the GEMM transposed, which sums in another order."""
-    device = utils.resolve_device(device)
-    g, d = cfg.num_kv_heads, cfg.head_dim
-
-    def state(i):
-        if cfg.mixer(i) == "conv":
-            return {"conv": torch.zeros((batch, CONV_WIDTH - 1, cfg.hidden_size),
-                                        dtype=torch.float32, device=device)}
-        return {"k": torch.zeros((batch, g, d, max_len), dtype=torch.float32, device=device),
-                "v": torch.zeros((batch, g, max_len, d), dtype=torch.float32, device=device)}
-    return [state(i) for i in range(cfg.num_layers)]
-
-
-@span("qt.attend")
-def _attend(cfg: ModelConfig, qh, kc, vc, pos_limit) -> torch.Tensor:
-    """q [B, T, H, D] against the fp32 cache, k [B, KVH, D, L] and v
-    [B, KVH, L, D] (``init_cache``), masked to positions < pos_limit +
-    per-query causality offset (and to the sliding window).
-    ``pos_limit``: int, or [B] for ragged batches."""
-    b, t = qh.shape[0], qh.shape[1]
-    l = kc.shape[-1]
-    dev = qh.device
-    rep = cfg.num_heads // cfg.num_kv_heads
-    q5 = qh.reshape(b, t, cfg.num_kv_heads, rep, cfg.head_dim)
-    scores = torch.einsum("btgrd,bsgd->bgrts", q5.to(torch.float32),
-                          kc.permute(0, 3, 1, 2)) * (cfg.head_dim ** -0.5)
-    pl = torch.as_tensor(pos_limit, device=dev)
-    qpos = pl[..., None] - t + torch.arange(t, device=dev)   # [t] or [B, t]
-    qpos = qpos.expand(b, t)
-    spos = torch.arange(l, device=dev)
-    mask = spos[None, None, :] <= qpos[:, :, None]            # [b, t, l]
-    if cfg.sliding_window:
-        mask &= spos[None, None, :] > qpos[:, :, None] - cfg.sliding_window
-    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrts,bsgd->btgrd", probs, vc.permute(0, 2, 1, 3))
-    return out.reshape(b, t, cfg.num_heads, cfg.head_dim).to(torch.bfloat16)
-
-
-def _block(cfg: ModelConfig, layer: dict, x: torch.Tensor, cache_l: dict,
-           start_pos, h, method: str, quantized: bool, lengths=None):
-    """One transformer block over x [B, T, D], writing the layer's state:
-    the KV cache at positions [start_pos, start_pos + T), or the conv
-    state (each row's at ``lengths`` [B] in a ragged prefill).
-    ``start_pos`` is an int, or a [B] tensor for ragged decode (then T
-    must be 1)."""
-    def attention(layer, xin):
-        return _attention(cfg, layer, xin, cache_l, start_pos, h, method, quantized)
-    return _layer(cfg, layer, x, attention, cache_l.get("conv"), h, method, quantized,
-                  lengths), cache_l
-
-
-def _attention(cfg: ModelConfig, layer: dict, xin: torch.Tensor, cache_l: dict,
-               start_pos, h, method: str, quantized: bool) -> torch.Tensor:
-    """The attention mixer over the normed xin [B, T, D], through o_proj."""
-    b, t, _ = xin.shape
-    qh = _linear(xin, layer["q_proj"], h, method, quantized)
-    kh = _linear(xin, layer["k_proj"], h, method, quantized)
-    vh = _linear(xin, layer["v_proj"], h, method, quantized)
-    qh = qh.reshape(b, t, cfg.num_heads, cfg.head_dim)
-    kh = kh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    vh = vh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        qh = _rms_norm(qh, layer["q_norm"], cfg.rms_eps)
-        kh = _rms_norm(kh, layer["k_norm"], cfg.rms_eps)
-    offsets = torch.arange(t, device=xin.device)
-    dense = isinstance(start_pos, int)
-    positions = start_pos + offsets if dense else start_pos[:, None] + offsets
-    qh = _rope(qh, positions, cfg.rope_theta)
-    kh = _rope(kh, positions, cfg.rope_theta)
-    if dense:
-        cache_l["k"][..., start_pos:start_pos + t] = kh.permute(0, 2, 3, 1)
-        cache_l["v"][:, :, start_pos:start_pos + t] = vh.transpose(1, 2)
-    else:                                  # ragged decode: one row each
-        rows = torch.arange(b, device=xin.device)   # index_put_ takes one dtype: cast the rows
-        cache_l["k"][rows, :, :, start_pos] = kh[:, 0].to(torch.float32)
-        cache_l["v"][rows, :, start_pos] = vh[:, 0].to(torch.float32)
-    attn = _attend(cfg, qh, cache_l["k"], cache_l["v"], start_pos + t)
-    attn = attn.reshape(b, t, cfg.num_heads * cfg.head_dim)
-    return _linear(attn, layer["o_proj"], h, method, quantized)
-
-
-def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return _head_logits(x, params.get("lm_head", params["embed"]))
 
 
 @span("qt.prefill")
@@ -150,8 +52,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, h=None, *,
     b, _ = tokens.shape
     cache = init_cache(cfg, b, max_len, tokens.device)
     x = params["embed"][tokens]
-    for layer, cache_l in zip(params["layers"], cache):
-        x, _ = _block(cfg, layer, x, cache_l, 0, h, method, quantized, lengths)
+    for layer, state in zip(params["layers"], cache):
+        x = _layer(cfg, layer, x, state, 0, h, method, quantized, lengths)
     last = (x[:, -1] if lengths is None
             else x[torch.arange(b, device=x.device), lengths - 1])
     return _logits(cfg, params, last), cache
@@ -161,8 +63,8 @@ def _decode(cfg: ModelConfig, params: dict, cache: list, token, pos, h,
             quantized: bool, method: str) -> torch.Tensor:
     """The decode step's body: logits [B, vocab], the cache written in place."""
     x = params["embed"][token][:, None]                   # [B, 1, D]
-    for layer, cache_l in zip(params["layers"], cache):
-        x, _ = _block(cfg, layer, x, cache_l, pos, h, method, quantized)
+    for layer, state in zip(params["layers"], cache):
+        x = _layer(cfg, layer, x, state, pos, h, method, quantized)
     return _logits(cfg, params, x[:, 0])
 
 

@@ -32,30 +32,27 @@ CONV_WIDTH = 3                     # the taps of a channel, W
 
 
 @span("qt.conv")
-def short_conv(layer: dict, x: torch.Tensor, state: torch.Tensor | None, h, method: str,
+def short_conv(layer: dict, x: torch.Tensor, state: torch.Tensor, h, method: str,
                quantized: bool, lengths: torch.Tensor | None = None) -> torch.Tensor:
     """The mixer over x [B, T, D] (bf16, normed) -> [B, T, D] bf16.
 
     ``state`` [B, W - 1, D] fp32 holds the inputs before x's first
     position; it is updated in place to each row's last ``W - 1`` inputs:
     those before ``lengths[b]`` where ``lengths`` [B] is given (a ragged
-    batch), else those of all T positions.  ``state=None`` starts from
-    zeros and keeps nothing (a forward from position 0)."""
+    batch), else those of all T positions."""
     b, t, d = x.shape
     bg, cg, xg = linear(x, layer["in_proj"], h, method, quantized).chunk(3, dim=-1)
     bx = bg.to(torch.float32) * xg.to(torch.float32)
     taps = layer["conv"].to(torch.float32)                   # [D, W]
     width = taps.shape[1]
-    prev = bx.new_zeros((b, width - 1, d)) if state is None else state
-    full = torch.cat([prev, bx], dim=1)                      # [B, W - 1 + T, D]
+    full = torch.cat([state, bx], dim=1)                     # [B, W - 1 + T, D]
     conv = full[:, 0:t] * taps[:, 0]
     for j in range(1, width):
         conv = conv + full[:, j:j + t] * taps[:, j]
-    if state is not None:
-        if lengths is None:
-            state.copy_(full[:, t:])
-        else:          # full's index of input position p is p + W - 1
-            idx = lengths[:, None] + torch.arange(width - 1, device=x.device)
-            state.copy_(full.gather(1, idx[..., None].expand(b, width - 1, d)))
+    if lengths is None:
+        state.copy_(full[:, t:])
+    else:              # full's index of input position p is p + W - 1
+        idx = lengths[:, None] + torch.arange(width - 1, device=x.device)
+        state.copy_(full.gather(1, idx[..., None].expand(b, width - 1, d)))
     y = (cg.to(torch.float32) * conv).to(torch.bfloat16)
     return linear(y, layer["out_proj"], h, method, quantized)

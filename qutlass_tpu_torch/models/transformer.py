@@ -5,7 +5,10 @@ hybrid (``LFM2_24B_A2B``): gated short-conv layers (``models/shortconv.py``)
 beside attention layers, a dropless sigmoid-routed expert layer
 (``models/experts.py``) after the leading dense ones.  A layer's dict names
 its parts: ``in_proj`` a short-conv mixer, else attention; ``router`` an
-expert layer, else the dense SwiGLU MLP.
+expert layer, else the dense SwiGLU MLP.  Each mixer reads and writes its
+layer's own state in a cache (``init_cache``), so :func:`forward` and the
+serving harness's prefill and decode step (``models/serving.py``) run one
+layer, :func:`_layer`.
 
 Parameters are a dict mirroring the JAX pytree (HF-style names), so
 weights convert one to one (``models/convert.py``).  Quantized
@@ -265,23 +268,93 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tenso
                      dim=-1).to(x.dtype)
 
 
-def _head_logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
-    """bf16 hidden states x lm head -> fp32 logits (fp32 accumulation)."""
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """bf16 hidden states [..., D] -> fp32 logits [..., vocab]: the final
+    norm, then the lm head in fp32 (fp32 accumulation)."""
+    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+    head = params.get("lm_head", params["embed"])
     return x.to(torch.float32) @ head.to(torch.float32).T
 
 
-def _prefill_attention(cfg: ModelConfig, qh, kh, vh, causal) -> torch.Tensor:
-    """Grouped-query causal attention, [b, t, h, d] layout, fp32 einsums
-    without materializing the KV repeat."""
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> list:
+    """Per-layer state, fp32 zeros, on the card unless ``device`` says
+    otherwise: an attention layer's k [B, kv_heads, head_dim, max_len] and
+    v [B, kv_heads, max_len, head_dim], a short-conv layer's ``conv``
+    [B, CONV_WIDTH - 1, hidden].
+
+    k and v hold bf16 values exactly.  Their layouts are the operands of
+    ``_attend``'s two batched GEMMs, batch (b, kv head) outermost: k as
+    the scores' [D, L] factor, v as the output's [L, D] factor.  k in v's
+    layout would reach the GEMM transposed, which sums in another order."""
+    device = utils.resolve_device(device)
+    g, d = cfg.num_kv_heads, cfg.head_dim
+
+    def state(i):
+        if cfg.mixer(i) == "conv":
+            return {"conv": torch.zeros((batch, CONV_WIDTH - 1, cfg.hidden_size),
+                                        dtype=torch.float32, device=device)}
+        return {"k": torch.zeros((batch, g, d, max_len), dtype=torch.float32, device=device),
+                "v": torch.zeros((batch, g, max_len, d), dtype=torch.float32, device=device)}
+    return [state(i) for i in range(cfg.num_layers)]
+
+
+@span("qt.attend")
+def _attend(cfg: ModelConfig, qh, kc, vc, pos_limit) -> torch.Tensor:
+    """q [B, T, H, D] against the fp32 cache, k [B, KVH, D, L] and v
+    [B, KVH, L, D] (``init_cache``), masked to positions < pos_limit +
+    per-query causality offset (and to the sliding window).
+    ``pos_limit``: int, or [B] for ragged batches."""
     b, t = qh.shape[0], qh.shape[1]
+    l = kc.shape[-1]
+    dev = qh.device
     rep = cfg.num_heads // cfg.num_kv_heads
     q5 = qh.reshape(b, t, cfg.num_kv_heads, rep, cfg.head_dim)
     scores = torch.einsum("btgrd,bsgd->bgrts", q5.to(torch.float32),
-                          kh.to(torch.float32)) * (cfg.head_dim ** -0.5)
-    scores = scores.masked_fill(~causal[None, None, None], float("-inf"))
+                          kc.permute(0, 3, 1, 2)) * (cfg.head_dim ** -0.5)
+    pl = torch.as_tensor(pos_limit, device=dev)
+    qpos = pl[..., None] - t + torch.arange(t, device=dev)   # [t] or [B, t]
+    qpos = qpos.expand(b, t)
+    spos = torch.arange(l, device=dev)
+    mask = spos[None, None, :] <= qpos[:, :, None]            # [b, t, l]
+    if cfg.sliding_window:
+        mask &= spos[None, None, :] > qpos[:, :, None] - cfg.sliding_window
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    attn = torch.einsum("bgrts,bsgd->btgrd", probs, vh.to(torch.float32))
-    return attn.reshape(b, t, cfg.num_heads * cfg.head_dim)
+    out = torch.einsum("bgrts,bsgd->btgrd", probs, vc.permute(0, 2, 1, 3))
+    return out.reshape(b, t, cfg.num_heads, cfg.head_dim).to(torch.bfloat16)
+
+
+def _attention(cfg: ModelConfig, layer: dict, xin: torch.Tensor, state: dict,
+               start_pos, h, method: str, quantized: bool) -> torch.Tensor:
+    """The attention mixer over the normed xin [B, T, D], through o_proj,
+    writing the layer's keys and values into ``state`` (``init_cache``) IN
+    PLACE at positions [start_pos, start_pos + T).  ``start_pos`` is an
+    int, or a [B] tensor for ragged decode (then T must be 1)."""
+    b, t, _ = xin.shape
+    qh = _linear(xin, layer["q_proj"], h, method, quantized)
+    kh = _linear(xin, layer["k_proj"], h, method, quantized)
+    vh = _linear(xin, layer["v_proj"], h, method, quantized)
+    qh = qh.reshape(b, t, cfg.num_heads, cfg.head_dim)
+    kh = kh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    vh = vh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        qh = _rms_norm(qh, layer["q_norm"], cfg.rms_eps)
+        kh = _rms_norm(kh, layer["k_norm"], cfg.rms_eps)
+    offsets = torch.arange(t, device=xin.device)
+    dense = isinstance(start_pos, int)
+    positions = start_pos + offsets if dense else start_pos[:, None] + offsets
+    qh = _rope(qh, positions, cfg.rope_theta)
+    kh = _rope(kh, positions, cfg.rope_theta)
+    if dense:
+        state["k"][..., start_pos:start_pos + t] = kh.permute(0, 2, 3, 1)
+        state["v"][:, :, start_pos:start_pos + t] = vh.transpose(1, 2)
+    else:                                  # ragged decode: one row each
+        rows = torch.arange(b, device=xin.device)   # index_put_ takes one dtype: cast the rows
+        state["k"][rows, :, :, start_pos] = kh[:, 0].to(torch.float32)
+        state["v"][rows, :, start_pos] = vh[:, 0].to(torch.float32)
+    attn = _attend(cfg, qh, state["k"], state["v"], start_pos + t)
+    attn = attn.reshape(b, t, cfg.num_heads * cfg.head_dim)
+    return _linear(attn, layer["o_proj"], h, method, quantized)
 
 
 def _mlp(x: torch.Tensor, layer: dict, h, method, quantized) -> torch.Tensor:
@@ -292,17 +365,19 @@ def _mlp(x: torch.Tensor, layer: dict, h, method, quantized) -> torch.Tensor:
     return _linear(act, layer["down_proj"], h, method, quantized)
 
 
-def _layer(cfg: ModelConfig, layer: dict, x: torch.Tensor, attention, conv_state, h, method,
-           quantized, lengths=None) -> torch.Tensor:
-    """One layer over x [B, T, D]: x + mixer(norm(x)), then + its experts
-    or its dense MLP over the norm of that.  The mixer is the short conv
-    where the layer has one (its state ``conv_state`` and ``lengths`` as
-    :func:`short_conv` takes them), else ``attention(layer, xin)``."""
+def _layer(cfg: ModelConfig, layer: dict, x: torch.Tensor, state: dict, start_pos, h,
+           method, quantized, lengths=None) -> torch.Tensor:
+    """One layer over x [B, T, D] at positions from ``start_pos`` on:
+    x + mixer(norm(x)), then + its experts or its dense MLP over the norm
+    of that.  The mixer is the short conv where the layer has one (its
+    ``state["conv"]``, each row's taken at ``lengths`` [B] in a ragged
+    prefill), else attention (its ``state`` k and v); either writes its
+    state in place."""
     xin = _rms_norm(x, layer["input_norm"], cfg.rms_eps)
     if "in_proj" in layer:
-        x = x + short_conv(layer, xin, conv_state, h, method, quantized, lengths)
+        x = x + short_conv(layer, xin, state["conv"], h, method, quantized, lengths)
     else:
-        x = x + attention(layer, xin)
+        x = x + _attention(cfg, layer, xin, state, start_pos, h, method, quantized)
     xin = _rms_norm(x, layer["post_attn_norm"], cfg.rms_eps)
     if "router" in layer:
         return x + _experts.moe(cfg, layer, xin, h, method, quantized)
@@ -313,41 +388,22 @@ def _layer(cfg: ModelConfig, layer: dict, x: torch.Tensor, attention, conv_state
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             h: torch.Tensor | None = None, *, quantized: bool = False,
             method: str = "quest") -> torch.Tensor:
-    """Prefill forward: tokens [B, T] int -> logits [B, T, vocab] fp32.
+    """Prefill forward: tokens [B, T] int -> logits [B, T, vocab] fp32, the
+    layers run as a prefill runs them, over a fresh cache of T positions.
+    The head runs on each position's [B, D] rows, the GEMM of a prefill's
+    last position: one GEMM over all B T rows sums in another order (MKL's
+    at one row), and the last position would not be prefill's logits.
 
     ``quantized=True`` expects params from :func:`quantize_model_weights`
     and runs every projection through its stored W4A4 path.
     """
     b, t = tokens.shape
-    dev = tokens.device
     x = params["embed"][tokens]
-    positions = torch.arange(t, device=dev)
-    causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
-    if cfg.sliding_window:
-        causal &= positions[None, :] > positions[:, None] - cfg.sliding_window
-
-    def attention(layer, xin):
-        qh = _linear(xin, layer["q_proj"], h, method, quantized)
-        kh = _linear(xin, layer["k_proj"], h, method, quantized)
-        vh = _linear(xin, layer["v_proj"], h, method, quantized)
-        qh = qh.reshape(b, t, cfg.num_heads, cfg.head_dim)
-        kh = kh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        vh = vh.reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-        if cfg.qk_norm:
-            qh = _rms_norm(qh, layer["q_norm"], cfg.rms_eps)
-            kh = _rms_norm(kh, layer["k_norm"], cfg.rms_eps)
-        qh = _rope(qh, positions, cfg.rope_theta)
-        kh = _rope(kh, positions, cfg.rope_theta)
-        attn = _prefill_attention(cfg, qh, kh, vh, causal).to(xin.dtype)
-        return _linear(attn, layer["o_proj"], h, method, quantized)
-
-    for layer in params["layers"]:
-        x = _layer(cfg, layer, x, attention, None, h, method, quantized)
-
-    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return _head_logits(x, params.get("lm_head", params["embed"]))
+    for layer, state in zip(params["layers"], init_cache(cfg, b, t, tokens.device)):
+        x = _layer(cfg, layer, x, state, 0, h, method, quantized)
+    return torch.stack([_logits(cfg, params, x[:, i]) for i in range(t)], dim=1)
 
 
 __all__ = ["ModelConfig", "QWEN3_8B", "QWEN3_14B", "QWEN3_32B", "LLAMA31_8B",
            "LLAMA31_70B", "LFM2_24B_A2B", "tiny_config", "init_params", "quantize_weight",
-           "quantize_model_weights", "calibrate_nv_gsx", "forward"]
+           "quantize_model_weights", "calibrate_nv_gsx", "init_cache", "forward"]

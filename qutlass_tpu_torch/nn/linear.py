@@ -94,15 +94,19 @@ def quantize_weight(w: torch.Tensor, *, h: torch.Tensor, method: str = "quest",
     return {"wqt": wqt, "wst": wst, **mark}
 
 
+def mx_alpha(w: Mapping, method: str) -> float:
+    """The GEMM alpha of a stored MX weight (a dense one or an expert
+    stack): the dequant constants fold into it, 1/3 for an abs-max
+    activation (runtime ``method``) and 1/3 for an abs-max weight (the
+    stored ``am`` marker)."""
+    return (1.0 if method == "quest" else 1 / 3) * (1 / 3 if "am" in w else 1.0)
+
+
 def mx_linear(x: torch.Tensor, w: Mapping, h: torch.Tensor,
               method: str = "quest") -> torch.Tensor:
-    """Apply a stored quantized weight to x [..., K] (bf16) -> [..., N].
-
-    The dequant constants fold into alpha: 1/3 for an abs-max activation
-    (runtime ``method``) and 1/3 for an abs-max weight (stored marker).
-    """
-    a_mx = ((1.0 if method == "quest" else 1 / 3)
-            * (1 / 3 if "am" in w else 1.0))
+    """Apply a stored quantized weight to x [..., K] (bf16) -> [..., N],
+    alpha :func:`mx_alpha`."""
+    a_mx = mx_alpha(w, method)
     if "wi8" in w:
         n, k = w["wi8"].shape
         ai, sa, _ = q.fusedQuantizeMxInt8(x.reshape(-1, k), h, method=method)

@@ -1,5 +1,6 @@
 """The port's codecs against the JAX codecs, bit for bit: every byte value
 and a dense fp32 sweep of [-8, 8] plus specials."""
+import os
 import pathlib
 import re
 import subprocess
@@ -12,6 +13,7 @@ import torch
 
 from qutlass_tpu.formats import codecs as JC
 from qutlass_tpu_torch.formats import codecs as TC
+import torch_helpers  # noqa: F401  (the worker's thread budget)
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "qutlass_tpu_torch"
 
@@ -106,3 +108,13 @@ def test_port_never_imports_jax():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=PKG.parent, timeout=120)
+
+
+def test_xdist_worker_takes_its_share_of_the_cores():
+    """In a pytest-xdist worker, torch's intra-op threads times the workers
+    fit the cores (``torch_helpers``'s budget), or the budget is one."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if not workers:
+        pytest.skip("runs in a pytest-xdist worker only")
+    threads = torch.get_num_threads()
+    assert threads == 1 or threads * workers <= os.cpu_count()

@@ -21,6 +21,7 @@ from qutlass_tpu_torch import models as M
 from qutlass_tpu_torch.models import serving as S
 from qutlass_tpu_torch.models import transformer as TF
 from qutlass_tpu_torch.ops import dispatch
+import torch_helpers  # noqa: F401  (the worker's thread budget)
 
 CFG = M.tiny_config()
 LENS = [8, 5, 3]

@@ -1,5 +1,5 @@
 """The attention KV cache held in fp32, in the layout attention's batched
-GEMMs read (``models.serving.init_cache`` / ``_attend``).
+GEMMs read (``models.transformer.init_cache`` / ``_attend``).
 
 Against a control that keeps a bf16 [B, L, KVH, D] cache, written and
 read as the port did before, upcast in every step: the served logits of
@@ -20,8 +20,9 @@ import qutlass_tpu_torch as qt
 from qutlass_tpu_torch import models as M
 from qutlass_tpu_torch.models import serving as S
 from qutlass_tpu_torch.models import transformer as TF
+import torch_helpers  # noqa: F401  (the worker's thread budget)
 
-INIT_CACHE = S.init_cache
+INIT_CACHE = TF.init_cache
 
 LFM2_TYPES = ("conv", "attention", "conv", "attention")
 # name -> (config, quantized); the LFM2-like model runs W4A4, as its expert layer must
@@ -97,8 +98,10 @@ def bf16_attention(cfg, layer, xin, cache_l, start_pos, h, method, quantized):
 
 
 def use_bf16_cache(mp):
+    """The control in place of the cache that ``prefill`` builds and of the
+    attention mixer that ``transformer._layer`` calls."""
     mp.setattr(S, "init_cache", bf16_cache)
-    mp.setattr(S, "_attention", bf16_attention)
+    mp.setattr(TF, "_attention", bf16_attention)
 
 
 # -- serving both ways --
@@ -140,7 +143,7 @@ def cpu_model(request):
 
 def test_init_cache_lays_out_the_gemm_operands():
     cfg, _ = CONFIGS["lfm2_rep4"]
-    cache = S.init_cache(cfg, 3, 10, device="cpu")
+    cache = TF.init_cache(cfg, 3, 10, device="cpu")
     k, v = cache[1]["k"], cache[1]["v"]
     assert k.shape == (3, 2, 32, 10) and v.shape == (3, 2, 10, 32)
     assert k.dtype == v.dtype == torch.float32 and k.is_contiguous() and v.is_contiguous()
@@ -188,8 +191,8 @@ def test_decode_attend_hands_the_cache_itself_to_each_bmm(pos):
     cfg = M.tiny_config(num_heads=8, num_kv_heads=2, head_dim=16)
     b, max_len = 3, 64
     p = torch.tensor([5, 63, 1]) if pos == "ragged" else 40
-    cache = S.init_cache(cfg, b, max_len, device="cpu")[0]
-    assert attend_ops(S._attend, cfg, cache, b, p) == (2, [])
+    cache = TF.init_cache(cfg, b, max_len, device="cpu")[0]
+    assert attend_ops(TF._attend, cfg, cache, b, p) == (2, [])
     bmm, copies = attend_ops(bf16_attend, cfg, bf16_cache(cfg, b, max_len, device="cpu")[0], b, p)
     assert bmm == 2 and copies.count("aten::_to_copy") == copies.count("aten::clone") == 2
 

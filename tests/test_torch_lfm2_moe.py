@@ -17,8 +17,10 @@ from qutlass_tpu_torch.kernels.gemm import gemm_fp4_experts
 from qutlass_tpu_torch.models import experts as X
 from qutlass_tpu_torch.models import serving as S
 from qutlass_tpu_torch.models.shortconv import short_conv
+from qutlass_tpu_torch.nn import mx_linear
 from qutlass_tpu_torch.ops import dispatch
 from qutlass_tpu_torch.ops import emulation as E
+import torch_helpers  # noqa: F401  (the worker's thread budget)
 
 TYPES = ("conv", "conv", "attention", "conv")
 CFG = M.tiny_config(num_layers=4, layer_types=TYPES, num_experts=8, experts_per_token=2,
@@ -104,14 +106,13 @@ def test_prefill_and_decode_match_the_reference(cpu_model):
 
 
 def test_forward_matches_prefill(cpu_model):
-    """``forward`` (no cache) and ``prefill`` give the last position's
-    logits alike: their fp32 attention differs only in its shapes (a
-    [T, T] mask against a cache's [T, max_len]), so in a few roundings."""
+    """``forward`` runs the layers as ``prefill`` does, over a fresh cache
+    of T positions: its last position's logits are prefill's bit for bit."""
     _, qp, h = cpu_model
     toks, _ = prompts("cpu", [12])
     full = M.forward(CFG, qp, toks, h, quantized=True)
     last, _ = M.prefill(CFG, qp, toks, h, max_len=12, quantized=True)
-    assert torch.allclose(full[:, -1], last, rtol=0, atol=1e-5)
+    assert torch.equal(full[:, -1], last)
 
 
 def test_ragged_conv_state_is_each_rows_own(cpu_model):
@@ -209,6 +210,34 @@ def test_experts_refuse_unquantized_weights(cpu_model):
     params, _, h = cpu_model
     with pytest.raises(ValueError, match="W4A4"):
         M.forward(CFG, params, prompts("cpu", [4])[0], h)
+
+
+@pytest.mark.parametrize("weight_method", ["quest", "abs_max"])
+@pytest.mark.parametrize("method", ["quest", "abs_max"])
+def test_mx_alpha_reaches_k4_and_k18(cpu_model, method, weight_method, monkeypatch):
+    """A dense MX linear (K4) and the expert layer (K4 a prefill's expert,
+    K18 a decode step's) pass the GEMM 1/3 for an abs-max activation times
+    1/3 for an abs-max weight (``am``), each method and marker alike."""
+    params, _, h = cpu_model
+    want = {("quest", "quest"): 1.0, ("quest", "abs_max"): 1 / 3,
+            ("abs_max", "quest"): 1 / 3, ("abs_max", "abs_max"): (1 / 3) * (1 / 3)}
+    seen = []
+    k4, k18 = qt.matmul_mxf4_bf16_kmajor, X.gemm_fp4_experts
+    monkeypatch.setattr(qt, "matmul_mxf4_bf16_kmajor",
+                        lambda *a: seen.append(("K4", a[4])) or k4(*a))
+    monkeypatch.setattr(X, "gemm_fp4_experts",
+                        lambda *a, **k: seen.append(("K18", a[5])) or k18(*a, **k))
+    layer = dict(params["layers"][1])
+    layer["experts"] = {n: X.quantize_stacked(w, h, weight_method)
+                        for n, w in layer["experts"].items()}
+    dense = M.quantize_weight(layer["router"], h=h, method=weight_method, weight_format="fp4")
+    g = torch.Generator().manual_seed(3)
+    mx_linear(torch.randn(3, 256, generator=g).to(torch.bfloat16), dense, h, method)
+    for t in (5, 17):                        # K18 up to DECODE_M tokens, K4 above
+        X.moe(CFG, layer, torch.randn(1, t, 256, generator=g).to(torch.bfloat16), h,
+              method, True)
+    assert {k for k, _ in seen} == {"K4", "K18"}
+    assert all(a == want[method, weight_method] for _, a in seen), seen
 
 
 def _grouped_case(dev, e=6, n=96, k=256, tokens=5, top=2, seed=7):

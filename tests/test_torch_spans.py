@@ -11,6 +11,7 @@ from torch.profiler import ProfilerActivity, profile
 import qutlass_tpu_torch as qt
 from qutlass_tpu_torch import models as M
 from qutlass_tpu_torch.ops import dispatch
+import torch_helpers  # noqa: F401  (the worker's thread budget)
 
 CFG = M.tiny_config()
 ROUTES = {"mx_fp4": ("mx", "fp4", "wqt"), "mx_int8": ("mx", "int8", "wi8"),

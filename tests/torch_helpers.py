@@ -1,11 +1,24 @@
 """Shared utilities of the PyTorch-port tests: data moves between the two
 packages as numpy arrays, bf16 through its bit pattern.  ``ml_dtypes`` is
 imported only where a bf16 array is made: the card's tests import this
-module for ``nan_equal`` and the operand builders alone."""
+module for ``nan_equal`` and the operand builders alone.
+
+Imported in a pytest-xdist worker, it gives the worker's torch its share of
+the cores, ``os.cpu_count() // PYTEST_XDIST_WORKER_COUNT`` intra-op threads
+(at least one): each worker otherwise keeps torch's default of one thread
+a core, and the workers' threads then outnumber the cores and spend the
+run switching.  Every port test file imports this module, so a lone ``-n``
+run of one file takes the same budget."""
+import os
+
 import numpy as np
 import torch
 
 from qutlass_tpu_torch.models.convert import tensor_from_numpy
+
+WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if WORKERS:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // WORKERS))
 
 
 def to_torch(a, device="cpu") -> torch.Tensor:

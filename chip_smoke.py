@@ -19,7 +19,12 @@ Phases, in order; any failure exits non-zero before the result lines:
      both formats, and K7 at M = 64; K4 also in the tn and kmajor_codes
      layouts) summed over an fp4 decode step and a prefill, beside the
      step's weight byte bound, launch floor and (prefill) fp64 fold
-     floor; the QAT kernels
+     floor; K4's warp-specialised prefill kernel, which is not in the
+     library and which no call runs (built on demand by
+     ``tools/time_mx_prefill_wg.py``), bitwise K4 and timed against it in
+     turns at (512, 4096, 12288) and at the ``long-prompt`` cell's prompt
+     lengths M = 345, 1596 and 6523 on Qwen3-8B's four (K, N); the QAT
+     kernels
      (K8-K11, K3 in the int8 backward's orders, and the training
      forward's K1 with the clip mask and K3) at the training shapes of
      phase 6, the backward-operand kernels K12-K15 at phase 7's, and the
@@ -539,6 +544,47 @@ def compare_kernels(torch, results: dict, qtimes: dict, ktimes: dict) -> None:
     ms = timed_ms(torch, lambda: G.gemm_fp4_mx(xc, wqt, xcs, wst, 1.0, layout="kmajor_codes"))
     print(f"phase 2 gemm_fp4_mx M,K,N={(m, k, n)} layout=kmajor_codes gemm_fp4_mx_prefill "
           f"bitwise ms={ms:.4f}")
+
+
+# K4's prefill kernel and its warp-specialised one in turns: (512, 4096,
+# 12288), then the long-prompt cell's prompt lengths on Qwen3-8B's four (K, N)
+K4_PREFILL_SHAPES = (TIMED,) + tuple((m, k, n) for m in (345, 1596, 6523) for k, n in SHAPES_KN)
+
+
+def compare_k4_prefill_kernels(torch) -> None:
+    """K4's warp-specialised prefill kernel (``gemm_fp4_prefill_wg.cuh``,
+    not in the library: built here by ``tools/time_mx_prefill_wg.py``)
+    against K4 (``gemm_fp4_mx``, whose K-major calls above 16 rows run the
+    prefill kernel) on the same K-major operands (every code; scale bytes
+    120..135, so every fp64 sum is exact): bitwise each other (and the
+    plain version at the timed shape), then timed in turns (K4, new, new,
+    K4) beside the int8 bound and the fp64 fold floor."""
+    import tempfile
+    from qutlass_tpu_torch.kernels import gemm as G
+    from qutlass_tpu_torch.tools import time_mx_prefill_wg as W
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    alpha = torch.tensor([0.37], device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = W.build(Path(tmp))["this"]
+        for m, k, n in K4_PREFILL_SHAPES:
+            ops = W.operands(torch, gen, m, n, k, dev)
+            old = G.gemm_fp4_mx(*ops, alpha, layout="kmajor")
+            new = W.call(torch, lib, *ops, alpha)
+            require(torch.equal(old, new), f"K4's prefill kernels differ at {(m, k, n)}")
+            if (m, k, n) == TIMED:
+                require(torch.equal(new, G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor")),
+                        f"K4's prefill kernels differ from the plain version at {(m, k, n)}")
+            t = [timed_ms(torch, fn) for fn in (
+                lambda: G.gemm_fp4_mx(*ops, alpha, layout="kmajor"),
+                lambda: W.call(torch, lib, *ops, alpha), lambda: W.call(torch, lib, *ops, alpha),
+                lambda: G.gemm_fp4_mx(*ops, alpha, layout="kmajor"))]
+            bnd = gemm_bound(m, n, k, m * k // 2 + m * k // 32, n * k // 2 + n * k // 32, "int8")
+            print(f"phase 2 K4 prefill kernels M,K,N={(m, k, n)} bitwise; in turns prefill "
+                  f"{t[0]:.4f} / {t[3]:.4f} ms, warp-specialised (not routed) {t[1]:.4f} / "
+                  f"{t[2]:.4f} ms; bound_ms={bnd[0]:.6f} ({bnd[1]}), fp64_fold_floor_ms="
+                  f"{fold_floor_ms(m, n, k, 32):.6f}")
 
 
 def _ulp_diff(torch, a, b):
@@ -1784,6 +1830,7 @@ def main() -> int:
                for name, (src, rep) in KERNELS.items()}
     qtimes, ktimes = {}, {}
     compare_kernels(torch, results, qtimes, ktimes)
+    compare_k4_prefill_kernels(torch)
     compare_nv_kernels(torch, results, qtimes, ktimes)
     compare_qat_kernels(torch, results)
     compare_bwd_op_kernels(torch, results)

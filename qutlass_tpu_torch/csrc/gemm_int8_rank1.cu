@@ -50,8 +50,13 @@
 // order give the same bits; the epilogue multiplies in the JAX op's order
 // with round-to-nearest intrinsics (no FMA: --fmad=false).
 #include "common.cuh"
+#include "wgmma_s8.cuh"
 
 namespace {
+
+using wgs8::swz;
+using wgs8::transpose4x4;
+using wgs8::wgmma_desc;
 
 constexpr int kMaxDev = 64;
 
@@ -75,17 +80,6 @@ __device__ __forceinline__ uint4 ld_stream(const int8_t* p) {
 
 __device__ __forceinline__ uint32_t word(const uint4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
-// rows r0..r3 of a 4x4 byte block -> its columns: o[i] byte j = r_j byte i
-__device__ __forceinline__ void transpose4x4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
-                                             uint32_t* o) {
-  const uint32_t t0 = __byte_perm(r0, r1, 0x5140), t1 = __byte_perm(r0, r1, 0x7362);
-  const uint32_t t2 = __byte_perm(r2, r3, 0x5140), t3 = __byte_perm(r2, r3, 0x7362);
-  o[0] = __byte_perm(t0, t2, 0x5410);
-  o[1] = __byte_perm(t0, t2, 0x7632);
-  o[2] = __byte_perm(t1, t3, 0x5410);
-  o[3] = __byte_perm(t1, t3, 0x7632);
 }
 
 // The 4 k-rows k..k+3 of the 16 columns r..r+15 of a K-major logical [R, K]
@@ -365,10 +359,6 @@ __host__ __device__ constexpr size_t smem(int bn, bool a_raw, bool b_raw) {
 }
 }  // namespace pre
 
-// byte offset of 16-byte chunk `ch` of row `r` in a [rows][128 B] tile with
-// the 128-byte swizzle wgmma's descriptor names (the tile 1024-aligned)
-__device__ __forceinline__ int swz(int r, int ch) { return r * 128 + ((ch ^ (r & 7)) << 4); }
-
 __device__ __forceinline__ void cp_async16(int8_t* dst, const int8_t* src, int bytes) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
@@ -377,13 +367,6 @@ __device__ __forceinline__ void cp_async16(int8_t* dst, const int8_t* src, int b
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// a K-major operand descriptor: start >> 4, leading offset 1 (unused with
-// the swizzle), 1024 bytes between 8-row groups, 128-byte swizzle
-__device__ __forceinline__ uint64_t wgmma_desc(const int8_t* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((s & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
 // d += a' b'^T over 32 bytes of K, d the warpgroup's 64 x n sums

@@ -59,6 +59,13 @@ _SIGNATURES = {
                            _I, _P],
 }
 
+# entry points of sources that are not in the library: the tools build them
+# on demand (tools/_variants.build)
+ON_DEMAND_SIGNATURES = {
+    "qt_gemm_fp4_mx_wg": [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, _F, _P,
+                          _I, _I, _I, _I, _P],
+}
+
 _lib: ctypes.CDLL | None = None
 
 

@@ -20,18 +20,22 @@ partial sums in a workspace allocated here, with one counter a column
 tile that the kernel leaves zero (kept per device and stream, so two
 streams never share one); above it the prefill kernel.
 
-K4 and K7 are two kernels too.  In the ``kmajor`` layout up to
-``DECODE_M`` rows both run one decode kernel (``csrc/gemm_fp4_decode.cuh``,
-templated on the format), which splits K over blocks
-(``fp4_decode_split``) and adds exact fp64 partial sums in a workspace
-allocated here, with the same per-stream counters.  Every other call runs
-one prefill kernel (``csrc/gemm_fp4_prefill.cuh``, templated on the
-format: each group's sum on the tensor cores, one int8 ``mma.sync`` a
-16- or 32-group), which folds each output's exact group terms into one
-fp64 chain in ascending k, with no workspace.  A launch counts as
-``gemm_fp4_mx`` and also as ``gemm_fp4_mx_decode`` or
-``gemm_fp4_mx_prefill``; as ``gemm_fp4_nv`` and also as
-``gemm_fp4_nv_decode`` or ``gemm_fp4_nv_prefill``.
+K4 and K7 pick between their kernels by ``fp4_kernel`` (format, layout
+and shape alone).  In the ``kmajor`` layout up to ``DECODE_M`` rows both
+run one decode kernel (``csrc/gemm_fp4_decode.cuh``, templated on the
+format), which splits K over blocks (``fp4_decode_split``) and adds exact
+fp64 partial sums in a workspace allocated here, with the same per-stream
+counters.  Every other call runs one prefill kernel
+(``csrc/gemm_fp4_prefill.cuh``, templated on the format: each group's sum
+on the tensor cores, one int8 ``mma.sync`` a 16- or 32-group), which folds
+each output's exact group terms into one fp64 chain in ascending k, with
+no workspace.  A launch counts as ``gemm_fp4_mx`` and also as
+``gemm_fp4_mx_decode`` or ``gemm_fp4_mx_prefill``; as ``gemm_fp4_nv`` and
+also as ``gemm_fp4_nv_decode`` or ``gemm_fp4_nv_prefill``.  K4 has a
+second prefill kernel for ``kmajor``, ``csrc/gemm_fp4_prefill_wg.cuh``
+(one ``wgmma`` a 32-group beside the fp64 fold, bitwise the first), which
+is not in the library and which no call here runs: the tools build it on
+demand (``tools/time_nv_prefill.py``).
 """
 from __future__ import annotations
 
@@ -112,6 +116,24 @@ def fp4_decode_split(m: int, n: int, k: int, sms: int, group: int) -> tuple[int,
     kc = -(-k // min(want, cap))
     kc = min(_DECODE_MAX_KC, max(gran, -(-kc // gran) * gran))
     return kc, -(-k // kc)
+
+
+def fp4_kernel(fmt: str, layout: str, m: int, n: int, k: int) -> str:
+    """The kernel K4 (``fmt`` "mx") or K7 ("nv") runs for an M x K x N
+    call in ``layout``: "decode" (``kmajor`` up to ``DECODE_M`` rows) or
+    "prefill" (everything else)."""
+    if fmt not in ("mx", "nv"):
+        raise ValueError(f"invalid format {fmt!r}")
+    return "decode" if layout == "kmajor" and m <= DECODE_M else "prefill"
+
+
+def word_rows(t: torch.Tensor, rows: int) -> bool:
+    """Whether the fp4 prefill kernel reads the logical [rows, K/2] packed
+    K-major operand ``t`` in 4-byte words of rows (``pre::vec_rows``): unit
+    stride along the rows, 4-byte aligned base and k-row stride, rows % 4
+    == 0; else it reads it byte by byte."""
+    return (t.stride(0) == 1 and t.data_ptr() % 4 == 0 and t.stride(1) % 4 == 0
+            and rows % 4 == 0)
 
 
 def _int8_strides(name: str, t: torch.Tensor) -> tuple[int, int]:
@@ -222,10 +244,12 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     [K/32, M] / [K/32, N].  ``"kmajor_codes"``: a unpacked codes [K, M],
     b packed [K/2, N].  ``alpha``: a number (passed by value) or a
     1-element tensor (a CUDA one is read on the card: no host sync).
-    K % 32 == 0.  ``kmajor`` at M <= ``DECODE_M`` runs the
-    decode kernel, which takes a weight and scales of unit stride along
-    N; any other call runs the prefill kernel, on any strides.  Anything
-    else raises; nothing falls back to the plain version.
+    K % 32 == 0.  ``fp4_kernel`` picks the kernel: ``kmajor`` at M <=
+    ``DECODE_M`` runs the decode kernel, which takes a weight and scales
+    of unit stride along N; any other call runs the prefill kernel, on
+    any strides (a ``kmajor`` activation that ``word_rows`` refuses is
+    first copied into zero-padded rows of a multiple of 4).  Anything else
+    raises; nothing falls back to the plain version.
     """
     if layout not in _FP4_PLAIN:
         raise ValueError(f"invalid layout {layout!r}")
@@ -258,27 +282,35 @@ def gemm_fp4_mx(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
         alpha_val = _alpha_float(alpha)             # a number, or a CPU tensor: no sync
     part = cnt = None
     kc = 0
-    decode = layout == "kmajor" and m <= DECODE_M
+    decode = fp4_kernel("mx", layout, m, n, k) == "decode"
     if decode:
         if b_r.stride(0) != 1 or bs_r.stride(0) != 1:
             raise ValueError(f"K4's decode kernel takes a weight and scales of unit stride "
                              f"along N; got b strides {b.stride()}, b_sf strides "
                              f"{b_sf.stride()}")
         kc, part, cnt = _fp4_decode_workspace(a.device, m, n, k, 32)
-    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    rows = m
+    if layout == "kmajor" and not decode and not word_rows(a_r, m):
+        # a ragged (M % 4 != 0) or misaligned activation would be read byte
+        # by byte, ~20% slower at M = 6523 on the H100 (PERF.md §6): copy it into
+        # zero-padded rows of a multiple of 4 and drop the pad rows' outputs
+        rows = -(-m // 4) * 4
+        a_r = torch.nn.functional.pad(a, (0, rows - m)).T
+        as_r = torch.nn.functional.pad(a_sf, (0, rows - m)).T
+    c = torch.empty((rows, n), dtype=out_dtype, device=a.device)
     err = _build.library().qt_gemm_fp4_mx(
         a_r.data_ptr(), a_r.stride(0), a_r.stride(1), int(a_packed),
         as_r.data_ptr(), as_r.stride(0), as_r.stride(1),
         b_r.data_ptr(), b_r.stride(0), b_r.stride(1), 1,
         bs_r.data_ptr(), bs_r.stride(0), bs_r.stride(1),
         None if al is None else al.data_ptr(), alpha_val or 0.0, c.data_ptr(),
-        int(out_dtype == torch.float32), m, n, k,
+        int(out_dtype == torch.float32), rows, n, k,
         None if part is None else part.data_ptr(), None if cnt is None else cnt.data_ptr(),
         kc, _stream(a))
     _build.check(err, "gemm_fp4_mx")
     dispatch.note_launch("gemm_fp4_mx")
     dispatch.note_launch("gemm_fp4_mx_decode" if decode else "gemm_fp4_mx_prefill")
-    return c
+    return c[:m]
 
 
 def gemm_fp4_experts(a: torch.Tensor, a_sf: torch.Tensor, b: torch.Tensor,
@@ -367,10 +399,11 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
     ``layout="tn"``: a/b packed u8 [M, K/2] / [N, K/2], scales [M, K/16]
     / [N, K/16].  ``"kmajor"``: a/b packed [K/2, M] / [K/2, N], scales
     [K/16, M] / [K/16, N].  ``alpha``: a number or a 1-element tensor.
-    K % 16 == 0.  ``kmajor`` at M <= ``DECODE_M`` runs the decode
-    kernel, which takes a weight and scales of unit stride along N; any
-    other call runs the prefill kernel, on any strides.  Anything else
-    raises; nothing falls back to the plain version.
+    K % 16 == 0.  ``fp4_kernel`` picks the kernel: ``kmajor`` at M <=
+    ``DECODE_M`` runs the decode kernel, which takes a weight and scales
+    of unit stride along N; any other call runs the prefill kernel, on
+    any strides.  Anything else raises; nothing falls back to the plain
+    version.
     """
     if layout not in _NV_PLAIN:
         raise ValueError(f"invalid layout {layout!r}")
@@ -397,7 +430,7 @@ def gemm_fp4_nv(a: torch.Tensor, b: torch.Tensor, a_sf: torch.Tensor,
                          f"{m}, {n}, {k}")
     part = cnt = None
     kc = 0
-    decode = not tn and m <= DECODE_M
+    decode = fp4_kernel("nv", layout, m, n, k) == "decode"
     if decode:
         if b_r.stride(0) != 1 or bs_r.stride(0) != 1:
             raise ValueError(f"K7's decode kernel takes a weight and scales of unit stride "

@@ -79,7 +79,8 @@ def build(sources: dict, tmp: Path, entry: str, kernel: str, sass: str | None = 
                         sass_dir.mkdir(parents=True, exist_ok=True)
                         (sass_dir / f"{name}.sass").write_text(func)
         lib = ctypes.CDLL(str(so))
-        getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
+        getattr(lib, entry).argtypes = {**_build._SIGNATURES,
+                                        **_build.ON_DEMAND_SIGNATURES}[entry]
         getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs

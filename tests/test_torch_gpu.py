@@ -613,6 +613,154 @@ def test_gemm_fp4_mx_prefill_kernel(dev, m, k, n, layout, out_dtype):
     assert torch.equal(got, want) and torch.equal(got, fold) and torch.equal(by_value, want)
 
 
+@pytest.mark.parametrize("m,k,n,off", [(17, 4096, 1024, 0), (6521, 4096, 1024, 0),
+                                       (6522, 2048, 1536, 0), (6523, 4096, 1024, 0),
+                                       (6524, 4096, 1024, 0), (45, 1536, 2048, 3),
+                                       (64, 2048, 1536, 1)])
+def test_gemm_fp4_mx_kmajor_prefill_pads_an_activation_it_cannot_word_load(dev, m, k, n, off):
+    """A K-major activation of M % 4 != 0 rows, or a column slice at a base
+    that is no multiple of 4, is copied into zero-padded rows of a multiple
+    of 4 before the prefill kernel: the output is [M, N], contiguous,
+    bitwise the plain version, and the operands are left as they were."""
+    at, bt, ast, bst = _mx_operands(dev, m + off, n, k, seed=m + off)
+    ops = (at[:, off:], bt, ast[:, off:], bst)
+    assert G.word_rows(ops[0].T, m) == (m % 4 == 0 and off == 0)
+    before = [t.clone() for t in ops]
+    want = G.gemm_fp4_mx_plain(*(t.contiguous() for t in ops), 0.37, layout="kmajor")
+    got, dec, pre = _k4(*ops, 0.37)
+    torch.cuda.synchronize()
+    assert (dec, pre) == (0, 1) and got.shape == (m, n) and got.is_contiguous()
+    assert torch.equal(got, want) and all(torch.equal(t, u) for t, u in zip(ops, before))
+
+
+# K4's warp-specialised prefill kernel (gemm_fp4_prefill_wg.cuh behind
+# gemm_fp4_mx_wg.cu; not in the library, built here on demand) against K4
+# (whose K-major calls above 16 rows run the prefill kernel), the plain
+# version and the group fold: today's grid, then ragged M (M % 4 = 1, 2, 3),
+# K of 1536 to 12288 and N of 33 to 12288, on each of its 128 x 128,
+# 128 x 64 and 128 x 32 tiles
+WG_CASES = [(17, 4128, 1024), (17, 4128, 4104), (64, 4128, 1024), (64, 4128, 4104),
+            (512, 4128, 1024), (512, 4128, 4104), (305, 1056, 33), (512, 4096, 12288),
+            (63, 2048, 1536), (130, 1536, 33), (345, 4096, 1024), (345, 12288, 4104),
+            (1596, 2048, 12288), (6523, 4096, 1536), (6522, 12288, 1024)]
+
+
+@pytest.fixture(scope="module")
+def wg_lib(tmp_path_factory):
+    """The warp-specialised kernel's library, compiled once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from qutlass_tpu_torch.tools import time_mx_prefill_wg as W
+    return W.build(tmp_path_factory.mktemp("wg"))["this"]
+
+
+def _wg(lib, ops, alpha, out_dtype=torch.bfloat16):
+    from qutlass_tpu_torch.tools import time_mx_prefill_wg as W
+    return W.call(torch, lib, *ops, alpha, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", WG_CASES)
+def test_gemm_fp4_mx_prefill_wg_kernel(dev, wg_lib, m, k, n, out_dtype):
+    """The warp-specialised prefill kernel bitwise K4's prefill kernel, the
+    plain version and the group fold, alpha on the card and as a number."""
+    ops = _mx_operands(dev, m, n, k, seed=m + n + k)
+    alpha = torch.tensor([0.37], device=dev)
+    want = G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    fold = E.gemm_fp4_mx_groupfold_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    old = G.gemm_fp4_mx(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    got = _wg(wg_lib, ops, alpha, out_dtype)
+    by_value = _wg(wg_lib, ops, 0.37, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, old) and torch.equal(got, want)
+    assert torch.equal(got, fold) and torch.equal(by_value, want)
+
+
+@pytest.mark.parametrize("off", [1, 2, 3, 5])
+@pytest.mark.parametrize("m,k,n", [(17, 2048, 1536), (45, 1536, 2048), (345, 4096, 1024)])
+def test_gemm_fp4_mx_prefill_wg_kernel_on_a_column_slice(dev, wg_lib, m, k, n, off):
+    """An activation that is a column slice of a larger K-major tensor at
+    a base that is no multiple of 4 (an expert's rows in an LFM2 prefill):
+    aligned word loads and a funnel shift, bitwise K4 and the plain
+    version."""
+    at, bt, ast, bst = _mx_operands(dev, m + off + 7, n, k, seed=off + m)
+    ops = (at[:, off:off + m], bt, ast[:, off:off + m], bst)
+    want = G.gemm_fp4_mx_plain(*(t.contiguous() for t in ops), 0.37, layout="kmajor")
+    old = G.gemm_fp4_mx(*ops, 0.37, layout="kmajor")
+    got = _wg(wg_lib, ops, 0.37)
+    torch.cuda.synchronize()
+    assert torch.equal(got, old) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,n,case", [(64, 200, "round"), (305, 72, "round_nan"),
+                                      (345, 1024, "round_nan"), (512, 4104, "round"),
+                                      (17, 72, "extreme"), (130, 4104, "extreme")])
+def test_gemm_fp4_mx_prefill_wg_kernel_adversarial_bytes(dev, wg_lib, m, n, case, out_dtype):
+    """Where the fp64 sums round (``mx_adversarial``) and at scale bytes
+    0, 253, 254 and 255 (``extreme``): the warp-specialised kernel folds in
+    the prefill kernel's order, so it equals K4 and the group fold bit for
+    bit, NaN positions included."""
+    if case == "extreme":
+        ops = tuple(t.to(dev) for t in _mx_extreme(m, n, 1024, seed=m))
+    else:
+        ops = tuple(t.to(dev) for t in mx_adversarial(m, n, 4096, seed=m,
+                                                      special=case == "round_nan"))
+    alpha = torch.tensor([0.37], device=dev)
+    want = E.gemm_fp4_mx_groupfold_plain(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    old = G.gemm_fp4_mx(*ops, alpha, layout="kmajor", out_dtype=out_dtype)
+    got = _wg(wg_lib, ops, alpha, out_dtype)
+    torch.cuda.synchronize()
+    assert nan_equal(got, want) and nan_equal(got, old)
+    assert bool(torch.isnan(want.float()).any()) == (case != "round")
+
+
+@pytest.mark.parametrize("device_alpha", [True, False])
+def test_gemm_fp4_mx_prefill_wg_kernel_repeats_and_replays_in_a_cuda_graph(dev, wg_lib,
+                                                                           device_alpha):
+    """Repeated launches of the warp-specialised kernel give the same bits;
+    one captured in a CUDA graph and replayed on new inputs (and a new
+    device alpha) equals the plain version: no workspace, no counters."""
+    ops = list(_mx_operands(dev, 345, 1024, 4096, seed=21))
+    alpha = torch.tensor([0.37], device=dev) if device_alpha else 0.37
+    first = _wg(wg_lib, ops, alpha)
+    for _ in range(3):
+        assert torch.equal(_wg(wg_lib, ops, alpha), first)
+    torch.cuda.synchronize()
+    assert torch.equal(first, G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor"))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        _wg(wg_lib, ops, alpha)                              # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = _wg(wg_lib, ops, alpha)
+    for seed in (22, 23):
+        for t, new in zip(ops, _mx_operands(dev, 345, 1024, 4096, seed=seed)):
+            t.copy_(new)
+        if device_alpha:
+            alpha.fill_(0.25 * seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, G.gemm_fp4_mx_plain(*ops, alpha, layout="kmajor"))
+
+
+def test_gemm_fp4_mx_prefill_wg_kernel_refuses_what_it_cannot_take(dev, wg_lib):
+    """The warp-specialised kernel takes K-major packed operands and scales
+    of unit stride along M and N, and K % 32 == 0: another stride on any of
+    the four, or K = 48, returns an error and writes nothing."""
+    at, bt, ast, bst = _mx_operands(dev, 64, 128, 512, seed=5)
+    for i in range(4):
+        ops = [at, bt, ast, bst]
+        ops[i] = ops[i].repeat(1, 2)[:, ::2]
+        with pytest.raises(RuntimeError):
+            _wg(wg_lib, ops, 1.0)
+    k48 = (at[:24], bt[:24], ast[:1], bst[:1])
+    with pytest.raises(RuntimeError):
+        _wg(wg_lib, k48, 1.0)
+
+
 def _mx_extreme(m, n, k, seed):
     """K-major operands on the card with a's scale bytes 240-254 and b's
     0-14 (the plain version's bf16 dequant saturates at 253-254, the fold
